@@ -5,34 +5,54 @@
 Phases (any failure exits non-zero before the last line is printed):
   1. require CUDA; print the card's name and power limit; TF32 off for the
      comparisons;
-  2. build the CUDA kernels from detrpose_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card: MSDA at
-     small shapes with out-of-range points and at the DETRPose-L/N/X eval
-     shapes, float32 (1e-5 of max|ref|) and bf16 values (1% of max|ref|);
+  2. build the CUDA kernels from detrpose_tpu_torch/csrc, one nvcc per
+     source, all at once;
+  3. hold each kernel against its plain PyTorch version on the card at small
+     shapes and at the DETRPose-L/N/X eval shapes, float32 (1e-5 of
+     max|ref|) and bf16 values (1% of max|ref|), and check that points
+     outside every map give exactly 0;
   4. DETRPose-L at full width (seeded random weights, the reference's
      zero-initialised leaves perturbed), bs 2 at 640 px in float32: the
-     forward through the kernel against the forward with the plain MSDA
-     (1e-4 absolute on logits and normalized keypoints), 6 launches each;
-  5. serve: build_pipeline("l") in bf16 answers 4 single images of different
-     sizes and one batch of 32 at 640 px; every launch counter is set to 0
-     before and read after, and each kernel must have run;
-  6. time, with CUDA events after a warm-up: the L forward + postprocess at
-     bs 32, 640 px, bf16, and each kernel against its plain version at the
-     L shapes, beside the least time the card could take (bound);
-  7. print the kernel table, the card line and, last, the result line.
+     forward with msda_backend "auto" (kernel #1) and "pallas" (kernel #2)
+     against "gather", the plain version (1e-4 absolute on logits and
+     normalized keypoints), 6 launches of the chosen kernel and 0 of the
+     other;
+  5. the same L deploy-fused against its train form, float32, 1e-4;
+  6. main path 1, serving: build_pipeline("l") in bf16 answers 4 single
+     images of different sizes and one batch of 32 at 640 px;
+  7. main path 2, the tools: tools/benchmark.py's model_info and bench_size
+     for n, s, m, l and x at bs 32, 640 px, bf16; tools/pallas_bench.py at
+     the L shapes; tools/export.py exports L deploy-fused at bs 32 in bf16,
+     reloads it and runs it against the eager deploy model (1e-2 of
+     max|ref|). Before each main path every launch counter is set to 0, and
+     after it each kernel the path runs must have launched;
+  8. time, with CUDA events after a warm-up: the L forward + postprocess at
+     bs 32 in deploy and train form and as the exported program, its traced
+     split, one bs-1 request, and each kernel against its plain version at
+     the L shapes, beside the least time the card could take (bound);
+  9. print the kernel table, the card line and, last, the result line.
 """
 import json
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from detrpose_tpu_torch.configs import build_model, model_config
-from detrpose_tpu_torch.models import MSDeformAttn, postprocess
-from detrpose_tpu_torch.ops.cuda.msda import msda_forward
+from detrpose_tpu_torch.ops.cuda import KERNELS, msda_forward, msda_perquery
+from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
+                                                      msda_perquery_plain, pack_points,
+                                                      pack_value)
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
+from detrpose_tpu_torch.tools import benchmark, pallas_bench
+from detrpose_tpu_torch.tools.benchmark import launch_counts
+from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline
+from detrpose_tpu_torch.utils.deploy import fuse_for_deploy
+from detrpose_tpu_torch.utils.measure import cuda_time_ms
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -43,6 +63,10 @@ L_SHAPES = dict(B=32, Lq=1080, nH=8, dh=32, nP=4, levels=((80, 80), (40, 40), (2
 N_SHAPES = dict(B=32, Lq=1080, nH=8, dh=16, nP=6, levels=((40, 40), (20, 20)))
 X_SHAPES = dict(B=32, Lq=1080, nH=8, dh=48, nP=4, levels=((80, 80), (40, 40), (20, 20)))
 TEST_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4)))
+# published parameter counts and GFLOPs at 640 px (SURVEY.md, README.md:81-85
+# of the reference)
+PUBLISHED = {"n": (4.1, 9.3), "s": (11.5, 33.1), "m": (20.8, 67.3), "l": (32.8, 107.1),
+             "x": (73.3, 239.5)}
 
 
 def fail(msg):
@@ -55,6 +79,11 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def zero_launch_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
 def msda_inputs(g, dtype, B, Lq, nH, dh, nP, levels, lo=-0.1, hi=1.1):
     S = sum(h * w for h, w in levels)
     nL = len(levels)
@@ -65,28 +94,18 @@ def msda_inputs(g, dtype, B, Lq, nH, dh, nP, levels, lo=-0.1, hi=1.1):
     return value, list(levels), loc, aw
 
 
-def msda_bound_ms(value, loc, aw, dh):
+def pack(value, loc, aw):
+    """Kernel #2's layout of the inputs of kernel #1."""
+    return (pack_value(value, loc.shape[2]),) + pack_points(loc, aw)
+
+
+def msda_bound_ms(inputs, out_bytes, n_weights, dh):
     """Least time for one call: inputs read once and the output written once
     at the memory rate, or 10 float32 operations per (point, channel) (4
     corner multiply-adds and the attention weight's) at the float32 peak."""
-    out_bytes = aw.shape[0] * aw.shape[1] * value.shape[2] * value.element_size()
-    nbytes = sum(t.numel() * t.element_size() for t in (value, loc, aw)) + out_bytes
-    ops = aw.numel() * dh * 10
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) + out_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_weights * dh * 10 / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def cuda_time_ms(fn, iters, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_time_split(fn, wall_ms):
@@ -106,9 +125,10 @@ def device_time_split(fn, wall_ms):
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not kernels:
-        print("[6] torch.profiler saw no device time; no split")
+        print("[8] torch.profiler saw no device time; no split")
         return
-    families = {"msda": ("msda_fwd",), "conv": ("conv", "fprop", "implicit"),
+    families = {"msda": ("msda_fwd", "msda_perquery"),
+                "conv": ("conv", "fprop", "implicit"),
                 "layout": ("nchwtonhwc", "nhwctonchw"),
                 "matmul": ("gemm", "nvjet", "cutlass", "cublas"),
                 "batch_norm": ("batch_norm",)}
@@ -118,17 +138,18 @@ def device_time_split(fn, wall_ms):
                     if any(k in name.lower() for k in keys)), "other")
         split[fam] = split.get(fam, 0.0) + ms
     busy = sum(split.values())
-    print(f"[6] traced forward: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+    print(f"[8] traced forward: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); by family: " + ", ".join(
               f"{f} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
               for f, ms in sorted(split.items(), key=lambda kv: -kv[1])))
     for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:8]:
-        print(f"[6]   {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+        print(f"[8]   {ms:8.3f} ms  x{count:<4d} {name[:90]}")
 
 
 def perturb_constant_leaves(model, g):
     """Give every parameter or buffer that init leaves constant (zero heads,
-    unit norms, BatchNorm statistics, bias priors) seeded noise."""
+    unit norms, BatchNorm statistics, bias priors) seeded noise, and scale
+    the two-stage selection head by 50 so the top-60 order is well defined."""
     with torch.no_grad():
         for name, t in list(model.named_parameters()) + list(model.named_buffers()):
             if not t.is_floating_point() or t.numel() == 0 or (t != t.flatten()[0]).any():
@@ -138,6 +159,174 @@ def perturb_constant_leaves(model, g):
                 t.mul_(1.0 + 0.5 * torch.rand(t.shape, generator=g).to(t.device, t.dtype))
             else:
                 t.add_(0.02 * noise if (t == 0).all() else 0.1 * noise)
+        model.transformer.enc_out_class_embed.weight.mul_(50.0)
+
+
+def compare_outputs(label, got, want, limit):
+    for k in ("pred_logits", "pred_keypoints"):
+        a, b = got[k].float(), want[k].float()
+        err = (a - b).abs().max().item()
+        print(f"[{label}] {k}: max|err| {err:.3e} (limit {limit:g}), "
+              f"finite {bool(torch.isfinite(a).all())}")
+        if not (err <= limit and torch.isfinite(a).all()):
+            fail(f"{label}: outputs disagree on {k}")
+
+
+def check_kernels(g):
+    """Phase 3: each kernel against its plain version; returns the max|err|
+    at the L shapes in bf16 per kernel."""
+    errs = {}
+    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("N", N_SHAPES),
+                       ("X", X_SHAPES)):
+        for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            value, levels, loc, aw = msda_inputs(g, dtype, **shp)
+            vflat, locp, awp = pack(value, loc, aw)
+            pairs = {"msda_fwd": (msda_forward(value, levels, loc, aw),
+                                  ms_deform_attn_core(value, levels, loc, aw)),
+                     "msda_perquery": (msda_perquery(vflat, levels, locp, awp),
+                                       msda_perquery_plain(vflat, levels, locp, awp))}
+            torch.cuda.synchronize()
+            for name, (got, want) in pairs.items():
+                got, want = got.float(), want.float()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                print(f"[3] {name:13s} {label:4s} {str(dtype):14s} max|err| {err:.3e} "
+                      f"max|ref| {scale:.3e} (limit {rel:g} of max|ref|)")
+                if not err <= rel * scale:
+                    fail(f"{name} disagrees with its plain version at {label} {dtype}")
+                if label == "L" and dtype == torch.bfloat16:
+                    errs[name] = err
+    value, levels, loc, aw = msda_inputs(g, torch.float32, **TEST_SHAPES, lo=1.5, hi=3.0)
+    vflat, locp, awp = pack(value, loc, aw)
+    for name, out in (("msda_fwd", msda_forward(value, levels, loc, aw)),
+                      ("msda_perquery", msda_perquery(vflat, levels, locp, awp))):
+        if out.abs().max().item() != 0.0:
+            fail(f"{name}: points outside every map must give exactly 0")
+    print("[3] both kernels: points outside the maps give exactly 0")
+    return errs
+
+
+def check_l_model(gen):
+    """Phases 4 and 5, float32 with TF32 off; returns the train-form model."""
+    models = {}
+    for backend in ("gather", "auto", "pallas"):
+        gb = torch.Generator().manual_seed(SEED)
+        m = build_model(model_config("l", msda_backend=backend), device="cuda", generator=gb)
+        perturb_constant_leaves(m, gb)
+        models[backend] = m
+    x = torch.rand(2, 3, 640, 640, generator=gen).cuda()
+    outs = {}
+    expect = {"gather": {}, "auto": {"msda_fwd": 6}, "pallas": {"msda_perquery": 6}}
+    with torch.no_grad():
+        for backend, m in models.items():
+            zero_launch_counts()
+            outs[backend] = m(x)
+            torch.cuda.synchronize()
+            want = {name: expect[backend].get(name, 0) for name in KERNELS}
+            if launch_counts() != want:
+                fail(f"L forward with msda_backend={backend!r} launched {launch_counts()}, "
+                     f"expected {want}")
+            print(f"[4] L bs2 640 f32, msda_backend={backend!r}: launches {launch_counts()}")
+    compare_outputs("4 auto vs gather", outs["auto"], outs["gather"], 1e-4)
+    compare_outputs("4 pallas vs gather", outs["pallas"], outs["gather"], 1e-4)
+
+    train = models["auto"]
+    deploy = build_model(model_config("l"), deploy=True, device="cuda")
+    deploy.load_state_dict(fuse_for_deploy(train.state_dict()), strict=True)
+    n_train, n_deploy = (sum(1 for k in m.state_dict()) for m in (train, deploy))
+    with torch.no_grad():
+        out_d = deploy(x)
+    print(f"[5] L deploy-fused: {n_deploy} state_dict entries (train form {n_train})")
+    compare_outputs("5 deploy vs train", out_d, outs["auto"], 1e-4)
+    return train
+
+
+def serve(train, rng):
+    """Main path 1 (phase 6); returns the pipeline and the first request."""
+    run = build_pipeline("l", device="cuda", dtype=torch.bfloat16)
+    run.model.load_state_dict(train.state_dict())
+    requests = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                for h, w in ((480, 640), (720, 1280), (500, 333), (640, 640))]
+    batch = rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
+    zero_launch_counts()
+    answers = [run(img, (img.shape[1], img.shape[0])) for img in requests]
+    answers.append(run(batch, np.full((32, 2), 640.0, np.float32)))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["msda_fwd"] == 0:
+        fail("the serving path never launched kernel msda_fwd")
+    for i, (scores, labels, kpts) in enumerate(answers):
+        B = 32 if i == len(answers) - 1 else 1
+        if (tuple(scores.shape) != (B, 60) or tuple(labels.shape) != (B, 60)
+                or tuple(kpts.shape) != (B, 60, 17, 3)):
+            fail(f"request {i}: shapes {scores.shape}, {labels.shape}, {kpts.shape}")
+        if not (torch.isfinite(scores.float()).all() and torch.isfinite(kpts.float()).all()):
+            fail(f"request {i}: non-finite output")
+        print(f"[6] request {i} (batch {B}): top scores "
+              f"{[round(s, 4) for s in scores[0, :3].float().tolist()]}, "
+              f"keypoint range [{kpts[..., :2].min().item():.1f}, "
+              f"{kpts[..., :2].max().item():.1f}] px")
+    print(f"[6] served {len(answers)} requests; kernel launches {counts}")
+    return run, requests[0], counts
+
+
+def tools(card):
+    """Main path 2 (phase 7); returns per-size results, the pallas_bench
+    times, the eager deploy and train serve modules, the reloaded exported
+    program and the launch counts."""
+    zero_launch_counts()
+    sizes = {}
+    for size in ("n", "s", "m", "l", "x"):
+        info = benchmark.model_info(size)
+        res = benchmark.bench_size(size, 32, 640, bf16=True, warmup=3, iters=10)
+        pub_p, pub_g = PUBLISHED[size]
+        print(f"[7] {size}: params {info['params_M']} M (published {pub_p}), "
+              f"conv+matmul GFLOPs {info['gflops']} (published {pub_g}, all ops); "
+              f"bs32 640 bf16 {res['latency_ms']} ms/batch ({res['images_per_sec']} "
+              f"img/s, {res['basis']}); launches {res['launches']} on {card}")
+        if not res["launches"]["msda_fwd"] > 0:
+            fail(f"bench_size({size!r}) launched no kernel")
+        sizes[size] = (info, res)
+    bench_ms = pallas_bench.bench(batch=32, res=640, iters=20)
+    for name, ms in bench_ms.items():
+        print(f"[7] pallas_bench {name:>20}: {ms:8.4f} ms/call ({ms / 32 * 1000:7.1f} "
+              f"us/img) on {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        export_model("l", batch=32, res=640, bf16=True, fuse=True, out_dir=tmp,
+                     device="cuda")
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = load_exported(tmp)
+        t_load = time.perf_counter() - t0
+        x = torch.rand(32, 3, 640, 640, device="cuda")
+        ts = torch.full((32, 2), 640.0, device="cuda")
+        before = msda_forward.launches
+        got = run(x, ts)
+        torch.cuda.synchronize()
+        n_run = msda_forward.launches - before
+    eager = {fuse: build_serve("l", bf16=True, fuse=fuse, device="cuda")
+             for fuse in (True, False)}
+    with torch.no_grad():
+        want = eager[True](x, ts)
+    for name, a, b in zip(("scores", "labels", "keypoints"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        print(f"[7] exported L vs eager deploy, {name}: max|err| {err:.3e} "
+              f"(limit 1e-2 of max|ref| {scale:.3e})")
+        if not err <= 1e-2 * scale:
+            fail(f"the exported program disagrees with the eager deploy model on {name}")
+    if n_run == 0:
+        fail("the exported program did not launch the msda kernel")
+    print(f"[7] export L deploy-fused bs32 bf16: export {t_export:.2f} s, load "
+          f"{t_load:.2f} s, one run launched msda_fwd {n_run} times")
+    counts = launch_counts()
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"the tools path never launched kernel {name}")
+    print(f"[7] tools path: kernel launches {counts}")
+    return sizes, bench_ms, eager, run, counts
 
 
 def main():
@@ -153,104 +342,45 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    log = msda_forward.build()
-    print(f"[2] built csrc/msda_fwd.cu in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("    ptxas:", line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, pool.map(lambda k: k.build(), KERNELS.values())))
+    print(f"[2] built {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas {name}:", line.strip())
 
-    # ---- 3. kernel vs plain
+    # ---- 3. kernels vs plain
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    max_abs_err = 0.0
-    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("N", N_SHAPES),
-                       ("X", X_SHAPES)):
-        for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            value, levels, loc, aw = msda_inputs(g, dtype, **shp)
-            got = msda_forward(value, levels, loc, aw).float()
-            want = ms_deform_attn_core(value, levels, loc, aw).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            print(f"[3] msda {label:4s} {str(dtype):14s} max|err| {err:.3e} "
-                  f"max|ref| {scale:.3e} (limit {rel:g} of max|ref|)")
-            if not err <= rel * scale:
-                fail(f"msda kernel disagrees with the plain version at {label} {dtype}")
-            if label == "L" and dtype == torch.bfloat16:
-                max_abs_err = err
-    value, levels, loc, aw = msda_inputs(g, torch.float32, **TEST_SHAPES, lo=1.5, hi=3.0)
-    if msda_forward(value, levels, loc, aw).abs().max().item() != 0.0:
-        fail("msda kernel: points outside every map must give exactly 0")
-    print("[3] msda points outside the maps give exactly 0")
+    max_abs_err = check_kernels(g)
 
-    # ---- 4. the L model, kernel vs plain MSDA, float32
+    # ---- 4, 5. the L model: kernels vs plain MSDA, deploy vs train form
     gen = torch.Generator().manual_seed(SEED)
-    model = build_model(model_config("l"), device="cuda", generator=gen)
-    perturb_constant_leaves(model, gen)
-    x = torch.rand(2, 3, 640, 640, generator=gen).cuda()
-    outs = {}
-    with torch.no_grad():
-        for plain in (False, True):
-            for m in model.modules():
-                if isinstance(m, MSDeformAttn):
-                    m.force_plain = plain
-            before = msda_forward.launches
-            outs[plain] = model(x)
-            torch.cuda.synchronize()
-            n = msda_forward.launches - before
-            if n != (0 if plain else 6):
-                fail(f"L forward launched the msda kernel {n} times (plain={plain})")
-    for m in model.modules():
-        if isinstance(m, MSDeformAttn):
-            m.force_plain = False
-    for k in ("pred_logits", "pred_keypoints"):
-        a, b = outs[False][k].float(), outs[True][k].float()
-        err = (a - b).abs().max().item()
-        print(f"[4] L bs2 640 f32 {k}: kernel vs plain max|err| {err:.3e} (limit 1e-4), "
-              f"finite {bool(torch.isfinite(a).all())}")
-        if not (err <= 1e-4 and torch.isfinite(a).all()):
-            fail(f"L forward through the kernel disagrees with the plain MSDA on {k}")
-    print("[4] L forward: 6 msda launches with the kernel, 0 with the plain version")
+    train = check_l_model(gen)
 
-    # ---- 5. serve (the main path)
+    # ---- 6. main path 1: serve
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    run = build_pipeline("l", device="cuda", dtype=torch.bfloat16)
-    run.model.load_state_dict(model.state_dict())
-    rng = np.random.default_rng(SEED)
-    requests = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-                for h, w in ((480, 640), (720, 1280), (500, 333), (640, 640))]
-    batch = rng.integers(0, 256, (32, 640, 640, 3), dtype=np.uint8)
-    msda_forward.launches = 0
-    answers = [run(img, (img.shape[1], img.shape[0])) for img in requests]
-    answers.append(run(batch, np.full((32, 2), 640.0, np.float32)))
-    torch.cuda.synchronize()
-    launches = {"msda_fwd": msda_forward.launches}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"the serving path never launched kernel {name}")
-    for i, (scores, labels, kpts) in enumerate(answers):
-        B = 32 if i == len(answers) - 1 else 1
-        if (tuple(scores.shape) != (B, 60) or tuple(labels.shape) != (B, 60)
-                or tuple(kpts.shape) != (B, 60, 17, 3)):
-            fail(f"request {i}: shapes {scores.shape}, {labels.shape}, {kpts.shape}")
-        if not (torch.isfinite(scores.float()).all() and torch.isfinite(kpts.float()).all()):
-            fail(f"request {i}: non-finite output")
-        print(f"[5] request {i} (batch {B}): top scores "
-              f"{[round(s, 4) for s in scores[0, :3].float().tolist()]}, "
-              f"keypoint range [{kpts[..., :2].min().item():.1f}, "
-              f"{kpts[..., :2].max().item():.1f}] px")
-    print(f"[5] served {len(answers)} requests; kernel launches {launches}")
+    run, img, counts_serve = serve(train, np.random.default_rng(SEED))
 
-    # ---- 6. timing
-    xb = torch.rand(32, 3, 640, 640, generator=gen).cuda().bfloat16()
+    # ---- 7. main path 2: the tools
+    sizes, bench_ms, eager, exported, counts_tools = tools(card)
+    total = {k: counts_serve[k] + counts_tools[k] for k in KERNELS}
+
+    # ---- 8. timing
+    xb = torch.rand(32, 3, 640, 640, generator=gen).cuda()
     wh = torch.full((32, 2), 640.0, device="cuda")
     with torch.no_grad():
-        fwd_ms = cuda_time_ms(lambda: postprocess(run.model(xb), wh), iters=10)
-    print(f"[6] L forward+postprocess bs32 640 bf16: {fwd_ms:.3f} ms/batch "
-          f"({32e3 / fwd_ms:.1f} img/s) on {card}")
+        fwd_ms = {fuse: cuda_time_ms(lambda m=m: m(xb, wh), iters=10)
+                  for fuse, m in eager.items()}
+        fwd_ms[True] = cuda_time_ms(lambda: eager[True](xb, wh), iters=10)
+    export_ms = cuda_time_ms(lambda: exported(xb, wh), iters=10)
+    print(f"[8] L forward+postprocess bs32 640 bf16: deploy-fused {fwd_ms[True]:.3f} "
+          f"ms/batch, train form {fwd_ms[False]:.3f} ms/batch "
+          f"(deploy, train, deploy), the exported deploy program {export_ms:.3f} "
+          f"ms/batch; on {card}")
     with torch.no_grad():
-        device_time_split(lambda: postprocess(run.model(xb), wh), fwd_ms)
-    img = requests[0]
+        device_time_split(lambda: eager[False](xb, wh), fwd_ms[False])
     lat = []
     for i in range(23):
         t0 = time.perf_counter()
@@ -258,26 +388,53 @@ def main():
         torch.cuda.synchronize()
         if i >= 3:
             lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"[6] one 480x640 request end to end (upload, resize, forward, decode; host "
+    print(f"[8] one 480x640 request end to end (upload, resize, forward, decode; host "
           f"clock, synchronised): median {np.median(lat):.3f} ms, min {min(lat):.3f} ms "
           f"over {len(lat)} on {card}")
-    value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **L_SHAPES)
-    k_ms = cuda_time_ms(lambda: msda_forward(value, levels, loc, aw), iters=50)
-    p_ms = cuda_time_ms(lambda: ms_deform_attn_core(value, levels, loc, aw), iters=10)
-    bound_ms, bound_by = msda_bound_ms(value, loc, aw, L_SHAPES["dh"])
-    print(f"[6] msda at L shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 values): "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}); 6 calls = {100 * 6 * k_ms / fwd_ms:.1f}% of the forward; "
-          f"on {card}")
 
-    # ---- 7. report
+    value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **L_SHAPES)
+    vflat, locp, awp = pack(value, loc, aw)
+    out_bytes = value.numel() // value.shape[1] * loc.shape[1] * value.element_size()
+    rows = {}
+    with torch.no_grad():
+        for name, kernel, plain, ins in (
+                ("msda_fwd", lambda: msda_forward(value, levels, loc, aw),
+                 lambda: ms_deform_attn_core(value, levels, loc, aw), (value, loc, aw)),
+                ("msda_perquery", lambda: msda_perquery(vflat, levels, locp, awp),
+                 lambda: msda_perquery_plain(vflat, levels, locp, awp),
+                 (vflat, locp, awp))):
+            k_ms = cuda_time_ms(kernel, iters=50)
+            p_ms = cuda_time_ms(plain, iters=10)
+            bound_ms, bound_by = msda_bound_ms(ins, out_bytes, aw.numel(), L_SHAPES["dh"])
+            rows[name] = (k_ms, p_ms, bound_ms, bound_by)
+            print(f"[8] {name} at L shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 values): "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); on {card}")
+        op_ms = cuda_time_ms(lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw),
+                             iters=50)
+    print(f"[8] msda_perquery with its packing from the (B, S, nH*dh) memory (the "
+          f"model's call): {op_ms:.4f} ms; 6 calls of kernel #1 = "
+          f"{100 * 6 * rows['msda_fwd'][0] / fwd_ms[False]:.1f}% of the train-form "
+          f"forward; on {card}")
+
+    # ---- 9. report
+    sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
+                            "detrpose_tpu/ops/pallas/msda_sep.py:59"),
+               "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
+                                 "detrpose_tpu/ops/pallas/msda.py:34")}
+    print(json.dumps({"sizes": {s: {"params_M": i["params_M"], "gflops": i["gflops"],
+                                    "latency_ms": r["latency_ms"],
+                                    "images_per_sec": r["images_per_sec"]}
+                                for s, (i, r) in sizes.items()},
+                      "l_deploy_ms": fwd_ms[True], "l_train_ms": fwd_ms[False],
+                      "l_exported_ms": export_ms,
+                      "pallas_bench_ms": bench_ms, "perquery_op_ms": op_ms}))
     print(json.dumps({"kernels": [{
-        "name": "msda_fwd", "route": "cuda",
-        "source": "detrpose_tpu_torch/csrc/msda_fwd.cu",
-        "replaces": "detrpose_tpu/ops/pallas/msda_sep.py:59",
-        "launches": launches["msda_fwd"], "max_abs_err": max_abs_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "name": name, "route": "cuda", "source": sources[name][0],
+        "replaces": sources[name][1], "launches": total[name],
+        "max_abs_err": max_abs_err[name], "ms": rows[name][0], "plain_ms": rows[name][1],
+        "bound_ms": rows[name][2], "bound_by": rows[name][3], "library_ms": None}
+        for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

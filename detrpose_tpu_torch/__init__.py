@@ -11,9 +11,11 @@ DETRPose ``state_dict`` keys, so zoo checkpoints load with
                sources live in ``csrc/``.
 - ``models``   ``nn.Module``s: HGNetv2 backbone, HybridEncoder, deformable pose
                decoder, post-process (eval path).
-- ``configs``  the N/S/M/L/X presets and ``build_model``.
-- ``utils``    weight carry from the JAX variables and zoo ``.pth`` loading.
-- ``tools``    ``infer.build_pipeline``, the serving entry point.
+- ``configs``  the N/S/M/L/X presets and ``build_model`` (train or deploy form).
+- ``utils``    weight carry from the JAX variables and zoo ``.pth`` loading,
+               deploy re-parameterisation, CUDA-event timing.
+- ``tools``    ``infer.build_pipeline``, the serving entry point; the
+               ``benchmark``, ``pallas_bench`` and ``export`` command lines.
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 """

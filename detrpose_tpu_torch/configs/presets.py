@@ -54,6 +54,12 @@ class ModelConfig:
     grid_num_points: int = 16
     use_grid_offsets: bool = False
     use_grid_fusion: bool = True
+    # MSDA compute path (the JAX names; models/decoder.py::MSDeformAttn):
+    #   "auto", "sep"  CUDA kernel #1 (csrc/msda_fwd.cu)
+    #   "pallas"       CUDA kernel #2 (csrc/msda_perquery.cu)
+    #   "gather"       the plain PyTorch version on any device
+    # On a CPU tensor each kernel's wrapper runs its plain version.
+    msda_backend: str = "auto"
     use_kan: bool = False
     kan_grid: int = 3
     use_energy_refinement: bool = False
@@ -109,10 +115,16 @@ def model_config(size: str = "l", num_body_points: int = 17, **overrides) -> Mod
     return cfg
 
 
-def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
+def build_model(cfg: ModelConfig, deploy: bool = False,
+                device: torch.device | str = "cuda",
                 generator: Optional[torch.Generator] = None) -> DETRPose:
     """Build the model in eval mode on ``device``, in ``cfg.dtype``, with weights
-    drawn from ``generator`` (a CPU generator seeded with 0 if None)."""
+    drawn from ``generator`` (a CPU generator seeded with 0 if None).
+
+    ``deploy=True`` builds the encoder's re-parameterised form, which takes
+    the weights ``utils/deploy.py::fuse_for_deploy`` makes from the train
+    form's state_dict.
+    """
     dev = resolve_device(device)
     flags = [f for f in _EXPERIMENTAL if getattr(cfg, f)]
     if flags:
@@ -125,14 +137,14 @@ def build_model(cfg: ModelConfig, device: torch.device | str = "cuda",
         in_channels=tuple(cfg.in_channels), n_levels=cfg.n_levels, hidden_dim=cfg.hidden_dim,
         dim_feedforward=cfg.enc_dim_feedforward,
         use_encoder_idx=tuple(cfg.use_encoder_idx),
-        expansion=cfg.expansion, depth_mult=cfg.depth_mult)
+        expansion=cfg.expansion, depth_mult=cfg.depth_mult, deploy=deploy)
     transformer = Transformer(
         hidden_dim=cfg.hidden_dim, num_queries=cfg.num_queries,
         num_decoder_layers=cfg.num_decoder_layers,
         dim_feedforward=cfg.dec_dim_feedforward,
         num_feature_levels=cfg.n_levels, dec_n_points=cfg.dec_n_points,
         num_classes=cfg.num_classes, num_body_points=cfg.num_body_points,
-        reg_max=cfg.reg_max, reg_scale=cfg.reg_scale)
+        reg_max=cfg.reg_max, reg_scale=cfg.reg_scale, msda_backend=cfg.msda_backend)
     model = DETRPose(backbone, encoder, transformer)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -9,10 +9,16 @@ The reference adds the keypoint query position embedding *in place*
 value, the residual stream and the gateway input. That is reproduced with an
 explicit add on tokens ``1:``, twice per layer.
 
-The MSDA path is chosen by the device of the value: the CUDA kernel
-(``ops/cuda/msda.py``) on a CUDA tensor, the plain version on a CPU tensor.
-``MSDeformAttn(force_plain=True)`` runs the plain version on any device; it
-exists so a run on the card can hold the kernel against it.
+``MSDeformAttn(msda_backend=...)`` is the counterpart of the JAX
+``MSDeformAttn._msda`` (decoder.py:103-135):
+  "auto", "sep"  kernel #1, ``ops/cuda/msda.py`` (the JAX separable kernel's
+                 port);
+  "pallas"       kernel #2, ``ops/cuda/msda_perquery.py`` (the JAX per-query
+                 kernel's port);
+  "gather"       the plain version ``ops/ms_deform_attn.py`` on any device (the
+                 JAX package's XLA path, chosen by name).
+Each kernel's wrapper launches it on a CUDA tensor and runs its plain version
+on a CPU tensor. Any other name raises, where JAX would take the gather path.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.cuda.msda import ms_deform_attn_fast_flat
+from ..ops.cuda.msda_perquery import ms_deform_attn_pallas_flat
 from ..ops.fdr import distance2pose, integral
 from ..ops.grid_sample import bilinear_grid_sample_nchw
 from ..ops.misc import inverse_sigmoid
@@ -32,6 +39,8 @@ from ..ops.pos_embed import sine_embedding_2d
 from .layers import MLP, Gate, MultiheadAttention, get_activation
 
 SpatialShapes = Sequence[Tuple[int, int]]
+
+MSDA_BACKENDS = ("auto", "sep", "pallas", "gather")
 
 # focal-style prior of the classification bias (transformer.py:1074-1076)
 CLASS_BIAS_PRIOR = -math.log((1 - 0.01) / 0.01)
@@ -59,10 +68,13 @@ class MSDeformAttn(nn.Module):
     """
 
     def __init__(self, d_model: int = 256, n_levels: int = 3, n_heads: int = 8,
-                 n_points: int = 4, force_plain: bool = False):
+                 n_points: int = 4, msda_backend: str = "auto"):
         super().__init__()
+        if msda_backend not in MSDA_BACKENDS:
+            raise ValueError(f"unknown msda_backend {msda_backend!r}; "
+                             f"expected one of {MSDA_BACKENDS}")
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
-        self.force_plain = force_plain
+        self.msda_backend = msda_backend
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.init_heads_()
@@ -91,8 +103,10 @@ class MSDeformAttn(nn.Module):
                                   dtype=torch.float32, device=query.device)
         loc = (reference_points[:, :, None, None, None, :]
                + offsets.float() / normalizer[None, None, None, :, None, :])
-        if self.force_plain:
+        if self.msda_backend == "gather":
             return ms_deform_attn_core(value, spatial_shapes, loc, aw)
+        if self.msda_backend == "pallas":
+            return ms_deform_attn_pallas_flat(value, spatial_shapes, loc, aw)
         return ms_deform_attn_fast_flat(value, spatial_shapes, loc, aw)
 
 
@@ -128,13 +142,15 @@ class DeformableDecoderLayer(nn.Module):
     """
 
     def __init__(self, d_model: int = 256, d_ffn: int = 1024, activation: str = "relu",
-                 n_levels: int = 3, n_heads: int = 8, n_points: int = 4):
+                 n_levels: int = 3, n_heads: int = 8, n_points: int = 4,
+                 msda_backend: str = "auto"):
         super().__init__()
         self.within_attn = MultiheadAttention(d_model, n_heads)
         self.within_norm = nn.LayerNorm(d_model)
         self.across_attn = MultiheadAttention(d_model, n_heads)
         self.across_norm = nn.LayerNorm(d_model)
-        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                       msda_backend)
         self.gateway = Gate(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -183,13 +199,14 @@ class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int = 6, hidden_dim: int = 256,
                  num_body_points: int = 17, d_ffn: int = 1024,
                  activation: str = "relu", n_levels: int = 3, n_heads: int = 8,
-                 n_points: int = 4, reg_scale: float = 4.0):
+                 n_points: int = 4, reg_scale: float = 4.0,
+                 msda_backend: str = "auto"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.reg_scale = reg_scale
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(hidden_dim, d_ffn, activation, n_levels,
-                                   n_heads, n_points)
+                                   n_heads, n_points, msda_backend)
             for _ in range(num_layers))
         self.half_pose_ref_point_head = MLP(hidden_dim, hidden_dim, hidden_dim, 2)
 

@@ -5,7 +5,9 @@ src/models/detrpose/hybrid_encoder.py:324-507 — per-level 1x1 conv + BN
 projection, a post-norm transformer encoder over the flattened stride-32
 tokens with a 2D sine position embedding, then the top-down FPN (lateral 1x1,
 nearest 2x upsample, RepNCSPELAN4) and the bottom-up PAN (SCDown,
-RepNCSPELAN4). Feature maps are NCHW.
+RepNCSPELAN4). Feature maps are NCHW. ``deploy=True`` builds the FPN/PAN's
+re-parameterised form (hybrid_encoder.py:68, 118-129 of the JAX package),
+whose weights ``utils/deploy.py::fuse_for_deploy`` makes.
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ class HybridEncoder(nn.Module):
                  enc_act: str = "gelu", use_encoder_idx: Sequence[int] = (2,),
                  num_encoder_layers: int = 1, expansion: float = 1.0,
                  depth_mult: float = 1.0, act: str = "silu",
-                 temperature_w: float = 20.0, temperature_h: float = 20.0):
+                 temperature_w: float = 20.0, temperature_h: float = 20.0,
+                 deploy: bool = False):
         super().__init__()
         assert len(in_channels) == n_levels
         hd = hidden_dim
@@ -82,12 +85,12 @@ class HybridEncoder(nn.Module):
         self.lateral_convs = nn.ModuleList(
             ConvNormLayer(hd, hd, 1, 1, act=act) for _ in range(n_levels - 1))
         self.fpn_blocks = nn.ModuleList(
-            RepNCSPELAN4(2 * hd, hd, 2 * hd, c4, n_blocks, act=act)
+            RepNCSPELAN4(2 * hd, hd, 2 * hd, c4, n_blocks, act=act, deploy=deploy)
             for _ in range(n_levels - 1))
         self.downsample_convs = nn.ModuleList(
-            nn.Sequential(SCDown(hd, hd, 3, 2)) for _ in range(n_levels - 1))
+            nn.Sequential(SCDown(hd, hd, 3, 2, deploy=deploy)) for _ in range(n_levels - 1))
         self.pan_blocks = nn.ModuleList(
-            RepNCSPELAN4(2 * hd, hd, 2 * hd, c4, n_blocks, act=act)
+            RepNCSPELAN4(2 * hd, hd, 2 * hd, c4, n_blocks, act=act, deploy=deploy)
             for _ in range(n_levels - 1))
 
     def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:

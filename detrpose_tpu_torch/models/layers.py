@@ -132,38 +132,68 @@ class ConvNormLayer(nn.Module):
 
 
 class VGGBlock(nn.Module):
-    """RepVGG 3x3 + 1x1 dual-branch block, train form. Reference: hybrid_encoder.py:139-189."""
+    """RepVGG 3x3 + 1x1 dual-branch block. Reference: hybrid_encoder.py:139-189.
 
-    def __init__(self, in_chs: int, out_chs: int, act: str = "relu"):
+    ``deploy=True`` is the re-parameterised form the reference's
+    ``convert_to_deploy`` leaves: one biased 3x3 ``conv`` (``utils/deploy.py``
+    folds the train form's weights into it).
+    """
+
+    def __init__(self, in_chs: int, out_chs: int, act: str = "relu",
+                 deploy: bool = False):
         super().__init__()
-        self.conv1 = ConvNormLayer(in_chs, out_chs, 3, 1, padding=1)
-        self.conv2 = ConvNormLayer(in_chs, out_chs, 1, 1, padding=0)
+        self.deploy = deploy
+        if deploy:
+            self.conv = nn.Conv2d(in_chs, out_chs, 3, 1, padding=1, bias=True)
+        else:
+            self.conv1 = ConvNormLayer(in_chs, out_chs, 3, 1, padding=1)
+            self.conv2 = ConvNormLayer(in_chs, out_chs, 1, 1, padding=0)
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deploy:
+            return self.act(self.conv(x))
         return self.act(self.conv1(x) + self.conv2(x))
 
 
-class ConvNormLayerFuse(ConvNormLayer):
-    """Conv + BN (+ act), train form (the deploy form folds BN into the conv).
+class ConvNormLayerFuse(nn.Module):
+    """Conv + BN (+ act). Reference: hybrid_encoder.py:56-111; its padding is
+    always (k-1)//2.
 
-    Reference: hybrid_encoder.py:56-111; its padding is always (k-1)//2.
+    ``deploy=True`` is the form the reference's ``convert_to_deploy`` leaves:
+    the BatchNorm folded into one biased conv, ``conv_bn_fused``.
     """
 
     def __init__(self, in_chs: int, out_chs: int, kernel_size: int, stride: int = 1,
-                 groups: int = 1, bias: bool = False, act: Optional[str] = None):
-        super().__init__(in_chs, out_chs, kernel_size, stride, groups=groups,
-                         bias=bias, act=act)
+                 groups: int = 1, bias: bool = False, act: Optional[str] = None,
+                 deploy: bool = False):
+        super().__init__()
+        self.deploy = deploy
+        p = (kernel_size - 1) // 2
+        if deploy:
+            self.conv_bn_fused = nn.Conv2d(in_chs, out_chs, kernel_size, stride,
+                                           padding=p, groups=groups, bias=True)
+        else:
+            self.conv = nn.Conv2d(in_chs, out_chs, kernel_size, stride, padding=p,
+                                  groups=groups, bias=bias)
+            self.norm = BatchNorm(out_chs)
+        self.act = get_activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deploy:
+            return self.act(self.conv_bn_fused(x))
+        return self.act(self.norm(self.conv(x)))
 
 
 class SCDown(nn.Module):
     """1x1 projection + depthwise strided downsample. Reference: hybrid_encoder.py:130-137."""
 
-    def __init__(self, in_chs: int, out_chs: int, kernel_size: int, stride: int):
+    def __init__(self, in_chs: int, out_chs: int, kernel_size: int, stride: int,
+                 deploy: bool = False):
         super().__init__()
-        self.cv1 = ConvNormLayerFuse(in_chs, out_chs, 1, 1)
+        self.cv1 = ConvNormLayerFuse(in_chs, out_chs, 1, 1, deploy=deploy)
         self.cv2 = ConvNormLayerFuse(out_chs, out_chs, kernel_size, stride,
-                                     groups=out_chs)
+                                     groups=out_chs, deploy=deploy)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv2(self.cv1(x))
@@ -173,13 +203,13 @@ class CSPLayer(nn.Module):
     """CSP bottleneck stack. Reference: hybrid_encoder.py:215-240."""
 
     def __init__(self, in_chs: int, out_chs: int, num_blocks: int = 3,
-                 expansion: float = 1.0, act: str = "silu"):
+                 expansion: float = 1.0, act: str = "silu", deploy: bool = False):
         super().__init__()
         hidden = int(out_chs * expansion)
         self.conv1 = ConvNormLayer(in_chs, hidden, 1, 1, act=act)
         self.conv2 = ConvNormLayer(in_chs, hidden, 1, 1, act=act)
         self.bottlenecks = nn.Sequential(
-            *[VGGBlock(hidden, hidden, act=act) for _ in range(num_blocks)])
+            *[VGGBlock(hidden, hidden, act=act, deploy=deploy) for _ in range(num_blocks)])
         self.conv3 = (ConvNormLayer(hidden, out_chs, 1, 1, act=act)
                       if hidden != out_chs else None)
 
@@ -192,15 +222,15 @@ class RepNCSPELAN4(nn.Module):
     """CSP-ELAN fusion block of the FPN/PAN. Reference: hybrid_encoder.py:192-212."""
 
     def __init__(self, in_chs: int, out_chs: int, c3: int, c4: int,
-                 num_blocks: int = 3, act: str = "silu"):
+                 num_blocks: int = 3, act: str = "silu", deploy: bool = False):
         super().__init__()
         self.c = c3 // 2
-        self.cv1 = ConvNormLayerFuse(in_chs, c3, 1, 1, act=act)
-        self.cv2 = nn.Sequential(CSPLayer(c3 // 2, c4, num_blocks, act=act),
-                                 ConvNormLayerFuse(c4, c4, 3, 1, act=act))
-        self.cv3 = nn.Sequential(CSPLayer(c4, c4, num_blocks, act=act),
-                                 ConvNormLayerFuse(c4, c4, 3, 1, act=act))
-        self.cv4 = ConvNormLayerFuse(c3 + 2 * c4, out_chs, 1, 1, act=act)
+        self.cv1 = ConvNormLayerFuse(in_chs, c3, 1, 1, act=act, deploy=deploy)
+        self.cv2 = nn.Sequential(CSPLayer(c3 // 2, c4, num_blocks, act=act, deploy=deploy),
+                                 ConvNormLayerFuse(c4, c4, 3, 1, act=act, deploy=deploy))
+        self.cv3 = nn.Sequential(CSPLayer(c4, c4, num_blocks, act=act, deploy=deploy),
+                                 ConvNormLayerFuse(c4, c4, 3, 1, act=act, deploy=deploy))
+        self.cv4 = ConvNormLayerFuse(c3 + 2 * c4, out_chs, 1, 1, act=act, deploy=deploy)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y0 = self.cv1(x)

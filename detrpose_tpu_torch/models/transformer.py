@@ -56,7 +56,8 @@ class Transformer(nn.Module):
                  activation: str = "relu", num_feature_levels: int = 3,
                  dec_n_points: int = 4, num_classes: int = 2,
                  num_body_points: int = 17, reg_max: int = 32,
-                 reg_scale: float = 4.0, up: float = 0.5):
+                 reg_scale: float = 4.0, up: float = 0.5,
+                 msda_backend: str = "auto"):
         super().__init__()
         hd, K = hidden_dim, num_body_points
         self.hidden_dim, self.num_queries, self.num_body_points = hd, num_queries, K
@@ -74,7 +75,7 @@ class Transformer(nn.Module):
 
         self.decoder = TransformerDecoder(
             num_decoder_layers, hd, K, dim_feedforward, activation,
-            num_feature_levels, nhead, dec_n_points, reg_scale)
+            num_feature_levels, nhead, dec_n_points, reg_scale, msda_backend)
         self.pre_pose_embed = MLP(hd, hd, 2, 3)
         self.pose_embed = nn.ModuleList(
             MLP(hd, hd, 2 * (reg_max + 1), 3) for _ in range(num_decoder_layers))

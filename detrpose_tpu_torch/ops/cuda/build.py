@@ -26,11 +26,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class _Loaded:
-    """Libraries built and loaded in this process, by source name."""
+    """Libraries built and loaded in this process, by source name. Each
+    source has its own lock, so two sources build at the same time."""
 
     def __init__(self):
         self.lock = threading.Lock()
+        self.source_locks: Dict[str, threading.Lock] = {}
         self.libs: Dict[str, Tuple[ctypes.CDLL, str]] = {}
+
+    def source_lock(self, source: str) -> threading.Lock:
+        with self.lock:
+            return self.source_locks.setdefault(source, threading.Lock())
 
 
 _LOADED = _Loaded()
@@ -58,7 +64,7 @@ def load_library(source: str) -> Tuple[ctypes.CDLL, str]:
     The log holds nvcc's ``-Xptxas -v`` report (registers, shared memory,
     spills per kernel) when this call built the library, else "".
     """
-    with _LOADED.lock:
+    with _LOADED.source_lock(source):
         if source in _LOADED.libs:
             return _LOADED.libs[source]
         src = CSRC / source

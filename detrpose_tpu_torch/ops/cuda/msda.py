@@ -10,7 +10,10 @@ on a CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
 the plain version ``ops/ms_deform_attn.py::ms_deform_attn_core``.
 ``msda_forward.launches`` counts kernel launches and nothing else.
 
-``ms_deform_attn_fast`` mirrors the JAX ``custom_vjp``: the forward is the
+The model calls it as the custom op ``torch.ops.detrpose_tpu_torch.msda_fwd``,
+so that ``torch.export`` keeps the kernel call in the graph (it cannot trace
+into a ``ctypes`` call) and an exported program launches the kernel when it
+runs. The op's gradient mirrors the JAX ``custom_vjp``: the forward is the
 kernel, the backward re-derives gradients by autograd through the plain
 version (as ``_fast_bwd`` does through the XLA path). There is no backward
 kernel, because the TPU kernel has none.
@@ -18,35 +21,63 @@ kernel, because the TPU kernel has none.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from ..ms_deform_attn import SpatialShapes, flatten_levels, ms_deform_attn_core
 from .build import load_library
 
-MAX_LEVELS = 4               # MSDA_MAX_LEVELS in the source
+MAX_LEVELS = 4               # MSDA_MAX_LEVELS in the sources
 MAX_THREADS = 1024           # threads per block: one per (head, channel)
 MAX_SMEM = 48 * 1024         # dynamic shared memory a launch gets without opting in
 
 
 class _Levels(ctypes.Structure):
-    """Mirror of ``struct MsdaLevels`` in csrc/msda_fwd.cu."""
+    """Mirror of ``struct MsdaLevels`` in the sources of csrc/."""
     _fields_ = [("h", ctypes.c_int * MAX_LEVELS),
                 ("w", ctypes.c_int * MAX_LEVELS),
                 ("start", ctypes.c_int * MAX_LEVELS)]
 
 
+def level_table(spatial_shapes: SpatialShapes) -> _Levels:
+    """Heights, widths and start rows of the levels, for a kernel launch."""
+    lv = _Levels()
+    start = 0
+    for i, (H, W) in enumerate(spatial_shapes):
+        lv.h[i], lv.w[i], lv.start[i] = int(H), int(W), start
+        start += int(H) * int(W)
+    return lv
+
+
+def flat_hw(spatial_shapes: SpatialShapes) -> List[int]:
+    """[(H, W), ...] -> [H0, W0, H1, W1, ...], the ``int[]`` a custom op takes."""
+    return [int(d) for hw in spatial_shapes for d in hw]
+
+
+def pairs(level_hw: Sequence[int]) -> List[Tuple[int, int]]:
+    """The inverse of ``flat_hw``."""
+    return [(int(level_hw[i]), int(level_hw[i + 1])) for i in range(0, len(level_hw), 2)]
+
+
+# The C entry points of both MSDA sources: value, locations, weights and
+# output pointers, the level table, seven ints, the stream; they return
+# cudaGetLastError().
 _ARGTYPES = [ctypes.c_void_p] * 4 + [_Levels] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _load():
-    lib, log = load_library("msda_fwd.cu")
-    for name in ("msda_fwd_f32", "msda_fwd_bf16"):
+def bind(source: str, names: Sequence[str]):
+    """Build and load ``csrc/<source>`` and declare its MSDA entry points."""
+    lib, log = load_library(source)
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib, log
+
+
+def _load():
+    return bind("msda_fwd.cu", ("msda_fwd_f32", "msda_fwd_bf16"))
 
 
 class MSDAForward:
@@ -76,18 +107,13 @@ class MSDAForward:
         out = torch.empty((B, Lq, C), dtype=value.dtype, device=dev)
         if out.numel() == 0:
             return out
-        lv = _Levels()
-        start = 0
-        for i, (H, W) in enumerate(spatial_shapes):
-            lv.h[i], lv.w[i], lv.start[i] = int(H), int(W), start
-            start += int(H) * int(W)
         lib, _ = _load()
         fn = lib.msda_fwd_bf16 if value.dtype == torch.bfloat16 else lib.msda_fwd_f32
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(value.data_ptr(), sampling_locations.data_ptr(),
-                     attention_weights.data_ptr(), out.data_ptr(), lv,
-                     B, S, Lq, nH, nL, nP, C // nH, stream)
+                     attention_weights.data_ptr(), out.data_ptr(),
+                     level_table(spatial_shapes), B, S, Lq, nH, nL, nP, C // nH, stream)
         if err != 0:
             raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -129,38 +155,48 @@ class MSDAForward:
 msda_forward = MSDAForward()
 
 
-class _MSDAFunction(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes):
-        ctx.save_for_backward(value, sampling_locations, attention_weights)
-        ctx.spatial_shapes = spatial_shapes
-        return msda_forward(value, spatial_shapes, sampling_locations,
-                            attention_weights)
+@torch.library.custom_op(
+    "detrpose_tpu_torch::msda_fwd", mutates_args=(),
+    schema="(Tensor value, int[] level_hw, Tensor loc, Tensor aw) -> Tensor")
+def _msda_fwd_op(value, level_hw, loc, aw):
+    return msda_forward(value, pairs(level_hw), loc, aw)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, aw = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip((value, loc, aw), ctx.needs_input_grad[:3])]
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(())
-        if wanted:
-            with torch.enable_grad():
-                out = ms_deform_attn_core(inputs[0], ctx.spatial_shapes,
-                                          inputs[1], inputs[2])
-                grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None,)
+
+@_msda_fwd_op.register_fake
+def _(value, level_hw, loc, aw):
+    return value.new_empty((loc.shape[0], loc.shape[1], value.shape[2]))
+
+
+def _setup_context(ctx, inputs, output):
+    value, level_hw, loc, aw = inputs
+    ctx.save_for_backward(value, loc, aw)
+    ctx.level_hw = level_hw
+
+
+def _backward(ctx, grad_out):
+    value, loc, aw = ctx.saved_tensors
+    need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
+    inputs = [t.detach().requires_grad_(n) for t, n in zip((value, loc, aw), need)]
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(())
+    if wanted:
+        with torch.enable_grad():
+            out = ms_deform_attn_core(inputs[0], pairs(ctx.level_hw), inputs[1], inputs[2])
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    gv, gl, ga = (next(grads) if t.requires_grad else None for t in inputs)
+    return gv, None, gl, ga
+
+
+_msda_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def ms_deform_attn_fast_flat(value: torch.Tensor, spatial_shapes: SpatialShapes,
                              sampling_locations: torch.Tensor,
                              attention_weights: torch.Tensor) -> torch.Tensor:
     """Kernel forward, plain-version gradients, on the flattened pyramid."""
-    shapes: Tuple[Tuple[int, int], ...] = tuple(
-        (int(h), int(w)) for h, w in spatial_shapes)
-    return _MSDAFunction.apply(value.contiguous(), sampling_locations.contiguous(),
-                               attention_weights.contiguous(), shapes)
+    return torch.ops.detrpose_tpu_torch.msda_fwd(
+        value.contiguous(), flat_hw(spatial_shapes), sampling_locations.contiguous(),
+        attention_weights.contiguous())
 
 
 def ms_deform_attn_fast(value_levels: Sequence[torch.Tensor],

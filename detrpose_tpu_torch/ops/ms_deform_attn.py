@@ -10,6 +10,8 @@ This is a direct 4-corner gather: pixel coordinates ``ix = x*W - 0.5``,
 ``iy = y*H - 0.5``, each corner zeroed on its own when it falls outside the
 map, and the sum kept in float32. It is the CPU path, the autograd path of
 the CUDA kernel (``ops/cuda/msda.py``) and the twin that kernel is held to.
+``bilinear_sample`` is the corner arithmetic; kernel #2's plain version
+(``ops/cuda/msda_perquery.py``) uses it on its own packed layout.
 
 The value is taken in the flattened channel-minor layout the transformer
 builds anyway: ``value`` (B, S, nH*dh) with S = sum of H_l*W_l, levels in
@@ -31,6 +33,38 @@ def flatten_levels(value_levels: Sequence[torch.Tensor]
     shapes = [(int(v.shape[1]), int(v.shape[2])) for v in value_levels]
     value = torch.cat([v.reshape(B, -1, nH * dh) for v in value_levels], dim=1)
     return value.contiguous(), shapes
+
+
+def bilinear_sample(v: torch.Tensor, H: int, W: int, lx: torch.Tensor,
+                    ly: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of one level with zeros padding.
+
+    Args:
+      v: (N, H*W, dh), the level's map per (batch, head).
+      lx, ly: (N, P) float32 normalized coordinates.
+
+    Returns:
+      (N, P, dh) float32.
+    """
+    dh = v.shape[-1]
+    ix = lx * W - 0.5
+    iy = ly * H - 0.5
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    sampled = 0.0
+    for xc, yc, w in ((x0, y0, (x1 - ix) * (y1 - iy)),
+                      (x0, y1, (x1 - ix) * (iy - y0)),
+                      (x1, y0, (ix - x0) * (y1 - iy)),
+                      (x1, y1, (ix - x0) * (iy - y0))):
+        valid = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)
+        xi = xc.clamp(0, W - 1).long()
+        yi = yc.clamp(0, H - 1).long()
+        idx = (yi * W + xi).unsqueeze(-1).expand(-1, -1, dh)
+        g = torch.gather(v, 1, idx).float()                       # (N, P, dh)
+        sampled = sampled + g * (w * valid)[..., None]
+    return sampled
 
 
 def ms_deform_attn_core(
@@ -69,25 +103,7 @@ def ms_deform_attn_core(
         lx = loc[:, :, :, lvl, :, 0].permute(0, 2, 1, 3).reshape(B * nH, Lq * nP)
         ly = loc[:, :, :, lvl, :, 1].permute(0, 2, 1, 3).reshape(B * nH, Lq * nP)
         a = aw[:, :, :, lvl].permute(0, 2, 1, 3).reshape(B * nH, Lq * nP)
-        ix = lx * W - 0.5
-        iy = ly * H - 0.5
-        x0 = torch.floor(ix)
-        y0 = torch.floor(iy)
-        x1 = x0 + 1.0
-        y1 = y0 + 1.0
-
-        sampled = 0.0
-        for xc, yc, w in ((x0, y0, (x1 - ix) * (y1 - iy)),
-                          (x0, y1, (x1 - ix) * (iy - y0)),
-                          (x1, y0, (ix - x0) * (y1 - iy)),
-                          (x1, y1, (ix - x0) * (iy - y0))):
-            valid = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)
-            xi = xc.clamp(0, W - 1).long()
-            yi = yc.clamp(0, H - 1).long()
-            idx = (yi * W + xi).unsqueeze(-1).expand(-1, -1, dh)
-            g = torch.gather(v, 1, idx).float()                   # (B*nH, Lq*nP, dh)
-            sampled = sampled + g * (w * valid)[..., None]
-        sampled = sampled * a[..., None]
+        sampled = bilinear_sample(v, H, W, lx, ly) * a[..., None]
         out = out + sampled.reshape(B * nH, Lq, nP, dh).sum(dim=2)
 
     out = out.reshape(B, nH, Lq, dh).permute(0, 2, 1, 3).reshape(B, Lq, C)

@@ -1,0 +1,120 @@
+"""Benchmark and model-info tools.
+
+Counterpart of ``detrpose_tpu/tools/benchmark.py`` (``model_info``,
+``bench_size``, ``main``), after the reference suite
+(tools/benchmark/get_info.py, tools/benchmark/torch_benchmark.py):
+
+* ``model_info``: parameters, and GFLOPs of one forward at (1, 3, res, res)
+  counted by ``torch.utils.flop_counter.FlopCounterMode``. That counts the
+  convolutions and matrix products only. It does not count MSDA (a custom
+  op), elementwise work or norms, which XLA's cost analysis in the JAX
+  package does count, so the two numbers differ.
+* ``bench_size``: forward + postprocess of random images on the CUDA device,
+  timed with CUDA events after a warm-up, with each kernel's launches during
+  the timed calls. On the CPU (``device="cpu"``) the host clock times it and
+  the result says so.
+
+The real-image leg (``bench_data``, which needs PIL) and the training-step
+leg (``bench_train_step``) are not ported yet.
+
+  python -m detrpose_tpu_torch.tools.benchmark --sizes n s m l x --batch 1 32
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..configs import build_model, model_config
+from ..models import postprocess
+from ..ops.cuda import KERNELS
+from ..utils.device import resolve_device
+from ..utils.measure import cuda_time_ms
+
+SIZES = ("n", "s", "m", "l", "x")
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each CUDA kernel's launch count so far in this process."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def model_info(size: str, num_body_points: int = 17, res: int = 640,
+               device: torch.device | str = "cuda") -> dict:
+    """Parameters and conv + matmul GFLOPs of one (1, 3, res, res) forward."""
+    dev = resolve_device(device)
+    model = build_model(model_config(size, num_body_points=num_body_points), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = FlopCounterMode(display=False)
+    with torch.no_grad(), flops:
+        model(torch.zeros(1, 3, res, res, device=dev))
+    return {"size": size, "params": n_params, "params_M": round(n_params / 1e6, 2),
+            "gflops": round(flops.get_total_flops() / 1e9, 1), "res": res,
+            "flops_counted": "conv and matmul (FlopCounterMode); not MSDA, "
+                             "elementwise or norms",
+            "device": _device_name(dev)}
+
+
+def bench_size(size: str, batch: int, res: int = 640, bf16: bool = True,
+               warmup: int = 10, iters: int = 50, device: torch.device | str = "cuda",
+               num_body_points: int = 17) -> dict:
+    """Forward + postprocess of ``batch`` random images at ``res`` px: mean
+    latency over ``iters`` calls after ``warmup`` calls, and each kernel's
+    launches during the timed calls."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    model = build_model(model_config(size, num_body_points=num_body_points, dtype=dtype),
+                        device=dev)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0, 1, (batch, 3, res, res)).astype(np.float32))
+    x = x.to(dev, dtype)
+    ts = torch.full((batch, 2), float(res), device=dev)
+
+    def fwd():
+        return postprocess(model(x), ts, num_body_points=num_body_points)
+
+    with torch.no_grad():
+        for _ in range(max(1, warmup)):
+            fwd()
+        before = launch_counts()
+        if dev.type == "cuda":
+            ms, basis = cuda_time_ms(fwd, iters, warmup=0), "cuda_events"
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fwd()
+            ms, basis = (time.perf_counter() - t0) / iters * 1e3, "cpu_host_clock"
+        after = launch_counts()
+    return {"size": size, "batch": batch, "res": res, "bf16": bf16,
+            "latency_ms": round(ms, 3), "images_per_sec": round(batch * 1e3 / ms, 1),
+            "basis": basis, "iters": iters, "device": _device_name(dev),
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--sizes", nargs="+", default=list(SIZES), choices=SIZES)
+    p.add_argument("--batch", nargs="+", type=int, default=[1, 32])
+    p.add_argument("--res", type=int, default=640)
+    p.add_argument("--info-only", action="store_true")
+    p.add_argument("--iters", type=int, default=50)
+    args = p.parse_args(argv)
+    for size in args.sizes:
+        print(json.dumps(model_info(size, res=args.res)), flush=True)
+        if args.info_only:
+            continue
+        for b in args.batch:
+            print(json.dumps(bench_size(size, b, args.res, iters=args.iters)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,8 @@ import torch
 
 from detrpose_tpu_torch.models.decoder import MSDeformAttn
 from detrpose_tpu_torch.ops.cuda.msda import ms_deform_attn_fast_flat, msda_forward
+from detrpose_tpu_torch.ops.cuda.msda_perquery import (msda_perquery, msda_perquery_plain,
+                                                       pack_points, pack_value)
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
 
 SHAPES = [(16, 16), (8, 8), (4, 4)]
@@ -69,7 +71,7 @@ def test_module_launches_kernel_and_matches_plain(cuda):
         before = msda_forward.launches
         got = attn(query, refs, value, SHAPES)
         assert msda_forward.launches == before + 1
-        attn.force_plain = True
+        attn.msda_backend = "gather"
         want = attn(query, refs, value, SHAPES)
         assert msda_forward.launches == before + 1
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
@@ -86,3 +88,47 @@ def test_backward_is_the_plain_versions(cuda):
         grads.append([t.grad for t in ins])
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-6
+
+
+def _packed(value, loc, aw):
+    """Kernel #2's layout of the inputs of ``_inputs``."""
+    return (pack_value(value, loc.shape[2]),) + pack_points(loc, aw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dh,nP", [(32, 4), (16, 6), (48, 4)])
+def test_perquery_kernel_matches_plain(cuda, dtype, rel, dh, nP):
+    # Lq 135 is not a multiple of the kernel's 8-query tile
+    vflat, locp, awp = _packed(*_inputs(cuda, dtype, dh=dh, nP=nP))
+    before = msda_perquery.launches
+    got = msda_perquery(vflat, SHAPES, locp, awp).float()
+    want = msda_perquery_plain(vflat, SHAPES, locp, awp).float()
+    assert msda_perquery.launches == before + 1
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_perquery_kernel_out_of_range_is_zero(cuda):
+    vflat, locp, awp = _packed(*_inputs(cuda, torch.float32, lo=1.5, hi=3.0))
+    assert msda_perquery(vflat, SHAPES, locp, awp).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_module_pallas_launches_perquery_once(cuda):
+    attn = MSDeformAttn(256, 3, 8, 4, msda_backend="pallas").to(cuda)
+    with torch.no_grad():
+        attn.sampling_offsets.weight.normal_(0, 0.02)
+        attn.attention_weights.weight.normal_(0, 0.02)
+    rng = np.random.default_rng(3)
+    query = torch.from_numpy(rng.normal(size=(2, 90, 256)).astype(np.float32)).to(cuda)
+    refs = torch.from_numpy(rng.uniform(0, 1, (2, 90, 2)).astype(np.float32)).to(cuda)
+    value = _inputs(cuda, torch.float32)[0]
+    with torch.no_grad():
+        before = (msda_perquery.launches, msda_forward.launches)
+        got = attn(query, refs, value, SHAPES)
+        assert (msda_perquery.launches, msda_forward.launches) == (before[0] + 1, before[1])
+        attn.msda_backend = "gather"
+        want = attn(query, refs, value, SHAPES)
+        assert msda_perquery.launches == before[0] + 1
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()

@@ -1,9 +1,13 @@
 """The port's serving slice end to end against the JAX package, on the CPU.
 
-N (2 levels, 6 points, dh 16) and S (3 levels, 4 points, dh 32: L's decoder)
-at 160 px, batch 2, float32, through ``build_model(...).eval()`` and through
-``build_pipeline(..., device="cpu")``, against JAX's ``postprocess(model.apply)``
-and ``detrpose_tpu/tools/infer.py::build_pipeline``'s ``run``.
+N (2 levels, 6 points, dh 16), S (3 levels, 4 points, dh 32: L's decoder) and
+M (4 decoder layers, B2 backbone) at 160 px, batch 2, float32, through
+``build_model(...).eval()`` and through ``build_pipeline(..., device="cpu")``,
+against JAX's ``postprocess(model.apply)`` and
+``detrpose_tpu/tools/infer.py::build_pipeline``'s ``run``; L and X are slow.
+N with ``msda_backend="pallas"`` runs kernel #2's plain version through its
+packed layout, against JAX's default gather path (the same function: JAX's
+"pallas" path runs on the CPU only in interpret mode).
 
 Weights are the seeded numpy draw of tests/test_torch_models.py, with the
 two-stage selection head scaled by 50 (as tests/test_e2e_parity.py does) so the
@@ -51,14 +55,23 @@ def _check_decoded(got, want):
     np.testing.assert_allclose(kpts, np.asarray(want[2]), rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("size", ["n", "s", pytest.param("l", marks=pytest.mark.slow)])
+@pytest.mark.parametrize("size", ["n", "s", "m", pytest.param("l", marks=pytest.mark.slow),
+                                  pytest.param("x", marks=pytest.mark.slow)])
 def test_model_parity(size):
+    _check_model_parity(size)
+
+
+def test_pallas_backend_parity():
+    _check_model_parity("n", msda_backend="pallas")
+
+
+def _check_model_parity(size, **overrides):
     jm, variables = _weights(size, seed=10)
     x = np.random.default_rng(11).uniform(0, 1, (2, HW, HW, 3)).astype(np.float32)
     sizes = np.array([[640, 480], [333, 500]], np.float32)
     out_j = jax.jit(lambda v, im: jm.apply(v, im, train=False))(variables, jnp.asarray(x))
 
-    port = build_model(model_config(size), device="cpu")
+    port = build_model(model_config(size, **overrides), device="cpu")
     port.load_state_dict(from_jax_variables(variables), strict=True)
     with torch.no_grad():
         out_t = port(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
@@ -110,6 +123,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         build_pipeline("n")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(model_config("n"))
+
+
+def test_unknown_msda_backend_raises():
+    with pytest.raises(ValueError, match="msda_backend"):
+        build_model(model_config("n", msda_backend="xla"), device="cpu")
 
 
 @pytest.mark.parametrize("flag", ["use_modulation", "use_region_sampling",
