@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
      source, all at once;
   3. hold each kernel against its plain PyTorch version on the card at small
      shapes and at the DETRPose-L/N/X eval shapes, float32 (1e-5 of
-     max|ref|) and bf16 values (1% of max|ref|), and check that points
+     max|ref|) and bf16 values (1% of max|ref|); the per-point kernels #3-#5
+     (every mode of #5, at both of its tiles) at the small and the L shapes
+     on the same packed bf16 values (1e-5 of max|ref|); and check that points
      outside every map give exactly 0;
   4. DETRPose-L at full width (seeded random weights, the reference's
      zero-initialised leaves perturbed), bs 2 at 640 px in float32: the
@@ -20,16 +22,22 @@ Phases (any failure exits non-zero before the last line is printed):
   5. the same L deploy-fused against its train form, float32, 1e-4;
   6. main path 1, serving: build_pipeline("l") in bf16 answers 4 single
      images of different sizes and one batch of 32 at 640 px;
-  7. main path 2, the tools: tools/benchmark.py's model_info and bench_size
+  7. the tools. Main path 2: tools/benchmark.py's model_info and bench_size
      for n, s, m, l and x at bs 32, 640 px, bf16; tools/pallas_bench.py at
      the L shapes; tools/export.py exports L deploy-fused at bs 32 in bf16,
      reloads it and runs it against the eager deploy model (1e-2 of
-     max|ref|). Before each main path every launch counter is set to 0, and
-     after it each kernel the path runs must have launched;
+     max|ref|). Main path 3, the MSDA variant tools: tools/msda_v2.py
+     (kernel #1 and the per-point kernels #3 and #4, each checked against the
+     plain gather) and tools/msda_ablate.py (kernel #5, four modes at two
+     tiles, each checked against its plain version), at bs 32 and 640 px.
+     Before each main path every launch counter is set to 0, and after it
+     each kernel the path runs must have launched;
   8. time, with CUDA events after a warm-up: the L forward + postprocess at
      bs 32 in deploy and train form and as the exported program, its traced
-     split, one bs-1 request, and each kernel against its plain version at
-     the L shapes, beside the least time the card could take (bound);
+     split, one bs-1 request, and each kernel (each mode of #5) against its
+     plain version at the L shapes, beside the least time the card could
+     take for its own bytes and operations (bound), and the ops of #2-#4
+     with their packing;
   9. print the kernel table, the card line and, last, the result line.
 """
 import json
@@ -42,12 +50,20 @@ import numpy as np
 import torch
 
 from detrpose_tpu_torch.configs import build_model, model_config
-from detrpose_tpu_torch.ops.cuda import KERNELS, msda_forward, msda_perquery
+from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
+                                         ms_deform_attn_tpose, msda_ablate, msda_colsin,
+                                         msda_forward, msda_perquery, msda_tpose)
+from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
+from detrpose_tpu_torch.ops.cuda.msda_colsin import msda_colsin_plain
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
                                                       msda_perquery_plain, pack_points,
                                                       pack_value)
+from detrpose_tpu_torch.ops.cuda.msda_tpose import msda_tpose_plain
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
-from detrpose_tpu_torch.tools import benchmark, pallas_bench
+from detrpose_tpu_torch.ops.msda_pack import (column_planes, pack_values_tposed,
+                                              pack_values_xminor)
+from detrpose_tpu_torch.ops.msda_pack import pack_points as pack_point_levels
+from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda_v2, pallas_bench
 from detrpose_tpu_torch.tools.benchmark import launch_counts
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline
@@ -99,13 +115,53 @@ def pack(value, loc, aw):
     return (pack_value(value, loc.shape[2]),) + pack_points(loc, aw)
 
 
-def msda_bound_ms(inputs, out_bytes, n_weights, dh):
-    """Least time for one call: inputs read once and the output written once
-    at the memory rate, or 10 float32 operations per (point, channel) (4
-    corner multiply-adds and the attention weight's) at the float32 peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs) + out_bytes
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_weights * dh * 10 / F32_FLOP_PER_S
+def level_maps(value, levels, nH):
+    """Kernel #1's value (B, S, nH*dh) -> per level (B, H, W, nH, dh), the
+    JAX package's per-level signature."""
+    B = value.shape[0]
+    return [m.reshape(B, H, W, nH, -1)
+            for m, (H, W) in zip(value.split([h * w for h, w in levels], 1), levels)]
+
+
+def per_point(value, levels, loc, aw):
+    """The per-point kernels' inputs from those of kernel #1: per level
+    (ix, iy, a), the x-minor and the transposed bf16 maps, the column planes."""
+    nH = loc.shape[2]
+    maps = level_maps(value, levels, nH)
+    return (pack_point_levels(loc, aw, levels), pack_values_xminor(maps),
+            pack_values_tposed(maps), column_planes(levels, value.shape[-1] // nH,
+                                                    value.device))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def msda_bound_ms(n_bytes, n_ops):
+    """Least time for one call: the bytes it must move (each input read once,
+    each output written once) at the memory rate, or its float32 operations
+    at the float32 peak, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def per_point_bounds(points, xminor, dh):
+    """The bound of each per-point function (kernels #3, #4 and each mode of
+    #5) on these inputs: its own bytes, and 10 float32 operations per (point,
+    level, channel) for four taps (4 multiply-adds and the weight's), 6 for
+    two taps, 1 for io_only's add; no_cexp also adds every value once to form
+    its row sums."""
+    ixs, iys, a_s = ([p[i] for p in points] for i in range(3))
+    B, nH, P = ixs[0].shape
+    out_bytes = B * nH * P * dh * 4
+    n_taps = sum(ix.numel() for ix in ixs) * dh        # (point, level, channel)
+    col0 = sum(v.shape[2] for v in xminor) * B * nH * dh * 2   # column 0, bf16
+    full = msda_bound_ms(nbytes(*ixs, *iys, *a_s, *xminor) + out_bytes, 10 * n_taps)
+    return {"msda_colsin": full, "msda_tpose": full, "full": full,
+            "no_cexp": msda_bound_ms(nbytes(*iys, *a_s, *xminor) + out_bytes,
+                                     sum(v.numel() for v in xminor) + 6 * n_taps),
+            "stage1_only": msda_bound_ms(nbytes(*iys, *a_s) + col0 + out_bytes, 6 * n_taps),
+            "io_only": msda_bound_ms(nbytes(*ixs) + out_bytes, n_taps)}
 
 
 def device_time_split(fn, wall_ms):
@@ -196,13 +252,41 @@ def check_kernels(g):
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
                 if label == "L" and dtype == torch.bfloat16:
                     errs[name] = err
+    # the per-point kernels take the packed bf16 values the TPU ops cast to
+    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES)):
+        value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **shp)
+        pts, xminor, tposed, cols = per_point(value, levels, loc, aw)
+        pairs = [("msda_colsin", "", msda_colsin(pts, xminor, cols, levels),
+                  msda_colsin_plain(pts, xminor, levels)),
+                 ("msda_tpose", "", msda_tpose(pts, tposed, levels),
+                  msda_tpose_plain(pts, tposed, levels))]
+        for mode in MODES:
+            want = msda_ablate_plain(mode, pts, xminor, levels)
+            pairs += [("msda_ablate", f"{mode} tile {tile}",
+                       msda_ablate(mode, pts, xminor, levels, tile), want) for tile in TILES]
+        torch.cuda.synchronize()
+        for name, what, got, want in pairs:
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            print(f"[3] {name:13s} {what:20s} {label:4s} bf16 values max|err| {err:.3e} "
+                  f"max|ref| {scale:.3e} (limit 1e-05 of max|ref|)")
+            if not err <= 1e-5 * scale:
+                fail(f"{name} {what} disagrees with its plain version at {label}")
+            if label == "L":
+                errs[name] = max(err, errs.get(name, 0.0))
+        del pairs
     value, levels, loc, aw = msda_inputs(g, torch.float32, **TEST_SHAPES, lo=1.5, hi=3.0)
     vflat, locp, awp = pack(value, loc, aw)
+    pts, xminor, tposed, cols = per_point(value, levels, loc, aw)
     for name, out in (("msda_fwd", msda_forward(value, levels, loc, aw)),
-                      ("msda_perquery", msda_perquery(vflat, levels, locp, awp))):
+                      ("msda_perquery", msda_perquery(vflat, levels, locp, awp)),
+                      ("msda_colsin", msda_colsin(pts, xminor, cols, levels)),
+                      ("msda_tpose", msda_tpose(pts, tposed, levels)),
+                      ("msda_ablate full", msda_ablate("full", pts, xminor, levels))):
         if out.abs().max().item() != 0.0:
             fail(f"{name}: points outside every map must give exactly 0")
-    print("[3] both kernels: points outside the maps give exactly 0")
+    print("[3] msda_fwd, msda_perquery, msda_colsin, msda_tpose and msda_ablate full: "
+          "points outside the maps give exactly 0")
     return errs
 
 
@@ -322,11 +406,33 @@ def tools(card):
     print(f"[7] export L deploy-fused bs32 bf16: export {t_export:.2f} s, load "
           f"{t_load:.2f} s, one run launched msda_fwd {n_run} times")
     counts = launch_counts()
-    for name, n in counts.items():
-        if n == 0:
+    for name in ("msda_fwd", "msda_perquery"):
+        if counts[name] == 0:
             fail(f"the tools path never launched kernel {name}")
     print(f"[7] tools path: kernel launches {counts}")
     return sizes, bench_ms, eager, run, counts
+
+
+def variant_tools(card):
+    """Main path 3 (phase 7): the MSDA variant and ablation tools at bs 32,
+    640 px; returns their results and the launch counts."""
+    zero_launch_counts()
+    v2 = msda_v2.run(batch=32, res=640, iters=10)
+    ablate = ablate_tool.run(batch=32, res=640, iters=10)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("msda_fwd", "msda_colsin", "msda_tpose", "msda_ablate"):
+        if counts[name] == 0:
+            fail(f"the variant tools path never launched kernel {name}")
+    for name, r in v2.items():
+        if name != "device":
+            print(f"[7] msda_v2 {name:>8} (kernel {r['kernel']}): {r['ms']:.4f} ms/call with "
+                  f"its packing, max rel err vs the gather {r['max_rel_err']:.3e} on {card}")
+    for name, ms in ablate.items():
+        if name != "device":
+            print(f"[7] msda_ablate {name:>20}: {ms:.4f} ms/call on {card}")
+    print(f"[7] variant tools path: kernel launches {counts}")
+    return v2, ablate, counts
 
 
 def main():
@@ -363,9 +469,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
     run, img, counts_serve = serve(train, np.random.default_rng(SEED))
 
-    # ---- 7. main path 2: the tools
+    # ---- 7. main paths 2 and 3: the tools, the MSDA variant tools
     sizes, bench_ms, eager, exported, counts_tools = tools(card)
-    total = {k: counts_serve[k] + counts_tools[k] for k in KERNELS}
+    v2, ablate, counts_variants = variant_tools(card)
+    total = {k: counts_serve[k] + counts_tools[k] + counts_variants[k] for k in KERNELS}
 
     # ---- 8. timing
     xb = torch.rand(32, 3, 640, 640, generator=gen).cuda()
@@ -394,41 +501,72 @@ def main():
 
     value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **L_SHAPES)
     vflat, locp, awp = pack(value, loc, aw)
+    pts, xminor, tposed, cols = per_point(value, levels, loc, aw)
+    dh = L_SHAPES["dh"]
     out_bytes = value.numel() // value.shape[1] * loc.shape[1] * value.element_size()
-    rows = {}
+    gather_bound = msda_bound_ms(nbytes(value, loc, aw) + out_bytes, 10 * aw.numel() * dh)
+    bounds = dict(per_point_bounds(pts, xminor, dh), msda_fwd=gather_bound,
+                  msda_perquery=gather_bound)
+    timed = [("msda_fwd", "msda_fwd", lambda: msda_forward(value, levels, loc, aw),
+              lambda: ms_deform_attn_core(value, levels, loc, aw)),
+             ("msda_perquery", "msda_perquery",
+              lambda: msda_perquery(vflat, levels, locp, awp),
+              lambda: msda_perquery_plain(vflat, levels, locp, awp)),
+             ("msda_colsin", "msda_colsin", lambda: msda_colsin(pts, xminor, cols, levels),
+              lambda: msda_colsin_plain(pts, xminor, levels)),
+             ("msda_tpose", "msda_tpose", lambda: msda_tpose(pts, tposed, levels),
+              lambda: msda_tpose_plain(pts, tposed, levels))]
+    for mode in MODES:
+        timed += [(f"msda_ablate {mode} tile {tile}", mode,
+                   lambda mode=mode, tile=tile: msda_ablate(mode, pts, xminor, levels, tile),
+                   lambda mode=mode: msda_ablate_plain(mode, pts, xminor, levels))
+                  for tile in TILES]
+    rows, modes, plain_ms = {}, {}, {}
     with torch.no_grad():
-        for name, kernel, plain, ins in (
-                ("msda_fwd", lambda: msda_forward(value, levels, loc, aw),
-                 lambda: ms_deform_attn_core(value, levels, loc, aw), (value, loc, aw)),
-                ("msda_perquery", lambda: msda_perquery(vflat, levels, locp, awp),
-                 lambda: msda_perquery_plain(vflat, levels, locp, awp),
-                 (vflat, locp, awp))):
+        for label, key, kernel, plain in timed:
             k_ms = cuda_time_ms(kernel, iters=50)
-            p_ms = cuda_time_ms(plain, iters=10)
-            bound_ms, bound_by = msda_bound_ms(ins, out_bytes, aw.numel(), L_SHAPES["dh"])
-            rows[name] = (k_ms, p_ms, bound_ms, bound_by)
-            print(f"[8] {name} at L shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 values): "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}); on {card}")
-        op_ms = cuda_time_ms(lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw),
-                             iters=50)
-    print(f"[8] msda_perquery with its packing from the (B, S, nH*dh) memory (the "
-          f"model's call): {op_ms:.4f} ms; 6 calls of kernel #1 = "
-          f"{100 * 6 * rows['msda_fwd'][0] / fwd_ms[False]:.1f}% of the train-form "
-          f"forward; on {card}")
+            if key not in plain_ms:      # a mode's plain version is timed once
+                plain_ms[key] = cuda_time_ms(plain, iters=10)
+            row = (k_ms, plain_ms[key]) + bounds[key]
+            print(f"[8] {label} at L shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 values): "
+                  f"kernel {k_ms:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} ms "
+                  f"({row[3]}); on {card}")
+            (modes if label.startswith("msda_ablate") else rows)[label] = row
+        rows["msda_ablate"] = modes[f"msda_ablate full tile {TILES[0]}"]
+        maps = level_maps(value, levels, L_SHAPES["nH"])
+        op_ms = {name: cuda_time_ms(fn, iters=50) for name, fn in (
+            ("msda_perquery", lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw)),
+            ("msda_fwd per-level", lambda: ms_deform_attn_fast(maps, loc, aw)),
+            ("msda_colsin", lambda: ms_deform_attn_colsin(maps, loc, aw)),
+            ("msda_tpose", lambda: ms_deform_attn_tpose(maps, loc, aw)))}
+    print(f"[8] the ops with their packing: msda_perquery from the (B, S, nH*dh) memory "
+          f"(the model's call) {op_ms['msda_perquery']:.4f} ms; from per-level maps (the "
+          f"tools' call) kernel #1 {op_ms['msda_fwd per-level']:.4f} ms, msda_colsin "
+          f"{op_ms['msda_colsin']:.4f} ms, msda_tpose {op_ms['msda_tpose']:.4f} ms; 6 calls "
+          f"of kernel #1 = {100 * 6 * rows['msda_fwd'][0] / fwd_ms[False]:.1f}% of the "
+          f"train-form forward; on {card}")
 
     # ---- 9. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
                "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
-                                 "detrpose_tpu/ops/pallas/msda.py:34")}
+                                 "detrpose_tpu/ops/pallas/msda.py:34"),
+               "msda_colsin": ("detrpose_tpu_torch/csrc/msda_colsin.cu",
+                               "tools_local_msda_v2.py:93"),
+               "msda_tpose": ("detrpose_tpu_torch/csrc/msda_tpose.cu",
+                              "tools_local_msda_v2.py:152"),
+               "msda_ablate": ("detrpose_tpu_torch/csrc/msda_ablate.cu",
+                               "tools_local_msda_ablate.py:48")}
     print(json.dumps({"sizes": {s: {"params_M": i["params_M"], "gflops": i["gflops"],
                                     "latency_ms": r["latency_ms"],
                                     "images_per_sec": r["images_per_sec"]}
                                 for s, (i, r) in sizes.items()},
                       "l_deploy_ms": fwd_ms[True], "l_train_ms": fwd_ms[False],
-                      "l_exported_ms": export_ms,
-                      "pallas_bench_ms": bench_ms, "perquery_op_ms": op_ms}))
+                      "l_exported_ms": export_ms, "pallas_bench_ms": bench_ms,
+                      "op_with_packing_ms": op_ms, "msda_v2": v2, "msda_ablate_tool": ablate,
+                      "msda_ablate_modes": {k: dict(zip(("ms", "plain_ms", "bound_ms",
+                                                         "bound_by"), r))
+                                            for k, r in modes.items()}}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

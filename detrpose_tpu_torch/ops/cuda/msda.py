@@ -17,6 +17,11 @@ runs. The op's gradient mirrors the JAX ``custom_vjp``: the forward is the
 kernel, the backward re-derives gradients by autograd through the plain
 version (as ``_fast_bwd`` does through the XLA path). There is no backward
 kernel, because the TPU kernel has none.
+
+The module also holds what the other wrappers share: ``bind`` and the level
+table of kernels #1 and #2, and the per-point kernels #3–#5's table of level
+pointers (``point_table``), input checks (``check_points``) and launch
+(``launch_points``).
 """
 from __future__ import annotations
 
@@ -60,20 +65,101 @@ def pairs(level_hw: Sequence[int]) -> List[Tuple[int, int]]:
     return [(int(level_hw[i]), int(level_hw[i + 1])) for i in range(0, len(level_hw), 2)]
 
 
-# The C entry points of both MSDA sources: value, locations, weights and
+# The C entry points of kernels #1 and #2: value, locations, weights and
 # output pointers, the level table, seven ints, the stream; they return
 # cudaGetLastError().
 _ARGTYPES = [ctypes.c_void_p] * 4 + [_Levels] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def bind(source: str, names: Sequence[str]):
+def bind(source: str, names: Sequence[str], argtypes: Sequence = _ARGTYPES):
     """Build and load ``csrc/<source>`` and declare its MSDA entry points."""
     lib, log = load_library(source)
     for name in names:
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib, log
+
+
+# ---- the per-point kernels #3–#5 (csrc/msda_{colsin,tpose,ablate}.cu)
+
+MAX_DH = 64          # channels-on-lanes kernels: two channels per lane
+
+
+class _PointLevels(ctypes.Structure):
+    """Mirror of ``struct PointLevels`` in the per-point sources: per level
+    the (ix, iy, a) point arrays, the value map, its height and width."""
+    _fields_ = [("ix", ctypes.c_void_p * MAX_LEVELS),
+                ("iy", ctypes.c_void_p * MAX_LEVELS),
+                ("a", ctypes.c_void_p * MAX_LEVELS),
+                ("v", ctypes.c_void_p * MAX_LEVELS),
+                ("h", ctypes.c_int * MAX_LEVELS),
+                ("w", ctypes.c_int * MAX_LEVELS)]
+
+
+# their C entry points: the point table, the output pointer, four ints
+# (B*nH, P, nL, dh), the stream
+POINT_ARGTYPES = [_PointLevels, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def point_table(points, values, shapes: SpatialShapes) -> _PointLevels:
+    """Device pointers of the per-level (ix, iy, a) and value maps, and the
+    levels' sizes, for a launch of a per-point kernel."""
+    lv = _PointLevels()
+    for i, ((ix, iy, a), v, (H, W)) in enumerate(zip(points, values, shapes)):
+        lv.ix[i], lv.iy[i], lv.a[i] = ix.data_ptr(), iy.data_ptr(), a.data_ptr()
+        lv.v[i] = v.data_ptr()
+        lv.h[i], lv.w[i] = int(H), int(W)
+    return lv
+
+
+def check_points(name: str, points, values, shapes: SpatialShapes, dh: int,
+                 value_dims) -> None:
+    """Checks of a per-point kernel's inputs; raises on what it does not take.
+
+    ``points``: per level (ix, iy, a), float32 (B, nH, P), contiguous;
+    ``values``: per level bf16 (B, nH) + ``value_dims(H, W, dh)``,
+    contiguous; all on one device."""
+    nL = len(shapes)
+    if not 1 <= nL <= MAX_LEVELS or len(points) != nL or len(values) != nL:
+        raise ValueError(f"{name}: {len(points)} point levels and {len(values)} value "
+                         f"levels for {nL} level shapes (1 to {MAX_LEVELS})")
+    if points[0][0].dim() != 3:
+        raise ValueError(f"{name}: points must be (B, nH, P), got "
+                         f"{tuple(points[0][0].shape)}")
+    B, nH, P = points[0][0].shape
+    dev = points[0][0].device
+    for lvl, ((ix, iy, a), v, (H, W)) in enumerate(zip(points, values, shapes)):
+        for t in (ix, iy, a):
+            if t.dtype != torch.float32 or tuple(t.shape) != (B, nH, P):
+                raise ValueError(f"{name}: level {lvl} points must be float32 (B, nH, P) "
+                                 f"like level 0's {(B, nH, P)}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+        if v.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: values must be bfloat16, got {v.dtype}")
+        want = (B, nH) + tuple(value_dims(int(H), int(W), dh))
+        if tuple(v.shape) != want:
+            raise ValueError(f"{name}: level {lvl} values {tuple(v.shape)}, expected {want}")
+        for t in (ix, iy, a, v):
+            if t.device != dev:
+                raise ValueError(f"{name}: inputs on {t.device} and {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: inputs must be contiguous")
+    if B * nH > 65535:
+        raise ValueError(f"{name}: grid of {B * nH} (image, head) pairs too large")
+
+
+def launch_points(name: str, fn, points, values, shapes: SpatialShapes,
+                  out: torch.Tensor, dh: int, *extra: int) -> None:
+    """Launch a per-point kernel on the current stream of ``out``'s device;
+    raises if the launch failed."""
+    B, nH, P = points[0][0].shape
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(point_table(points, values, shapes), out.data_ptr(), B * nH, P,
+                 len(shapes), dh, *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _load():

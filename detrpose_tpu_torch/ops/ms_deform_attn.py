@@ -11,7 +11,9 @@ This is a direct 4-corner gather: pixel coordinates ``ix = x*W - 0.5``,
 map, and the sum kept in float32. It is the CPU path, the autograd path of
 the CUDA kernel (``ops/cuda/msda.py``) and the twin that kernel is held to.
 ``bilinear_sample`` is the corner arithmetic; kernel #2's plain version
-(``ops/cuda/msda_perquery.py``) uses it on its own packed layout.
+(``ops/cuda/msda_perquery.py``) uses it on its own packed layout, and the
+plain versions of kernels #3–#5 use ``bilinear_sample_px``, the same taps at
+pixel coordinates.
 
 The value is taken in the flattened channel-minor layout the transformer
 builds anyway: ``value`` (B, S, nH*dh) with S = sum of H_l*W_l, levels in
@@ -46,9 +48,14 @@ def bilinear_sample(v: torch.Tensor, H: int, W: int, lx: torch.Tensor,
     Returns:
       (N, P, dh) float32.
     """
+    return bilinear_sample_px(v, H, W, lx * W - 0.5, ly * H - 0.5)
+
+
+def bilinear_sample_px(v: torch.Tensor, H: int, W: int, ix: torch.Tensor,
+                       iy: torch.Tensor) -> torch.Tensor:
+    """``bilinear_sample`` at pixel coordinates ``ix = x*W - 0.5``,
+    ``iy = y*H - 0.5``, (N, P) float32 -> (N, P, dh) float32."""
     dh = v.shape[-1]
-    ix = lx * W - 0.5
-    iy = ly * H - 0.5
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     x1 = x0 + 1.0

@@ -7,7 +7,9 @@ machine with a card and no JAX it runs without the suite's conftest:
   python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances: float32 within 1e-5 of max|ref| (sums in another order); bf16
-values within 1% of max|ref| (one bf16 rounding of the output).
+values within 1% of max|ref| (one bf16 rounding of the output); the
+per-point kernels #3–#5 within 1e-5 of max|ref| (bf16 values, float32
+output, the same sums in another order).
 """
 import numpy as np
 import pytest
@@ -17,7 +19,14 @@ from detrpose_tpu_torch.models.decoder import MSDeformAttn
 from detrpose_tpu_torch.ops.cuda.msda import ms_deform_attn_fast_flat, msda_forward
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (msda_perquery, msda_perquery_plain,
                                                        pack_points, pack_value)
+from detrpose_tpu_torch.ops.cuda.msda_ablate import msda_ablate, msda_ablate_plain
+from detrpose_tpu_torch.ops.cuda.msda_colsin import (ms_deform_attn_colsin, msda_colsin,
+                                                     msda_colsin_plain)
+from detrpose_tpu_torch.ops.cuda.msda_tpose import (ms_deform_attn_tpose, msda_tpose,
+                                                    msda_tpose_plain)
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
+from detrpose_tpu_torch.ops.msda_pack import column_planes, pack_values_tposed, pack_values_xminor
+from detrpose_tpu_torch.ops.msda_pack import pack_points as pack_point_levels
 
 SHAPES = [(16, 16), (8, 8), (4, 4)]
 
@@ -132,3 +141,77 @@ def test_module_pallas_launches_perquery_once(cuda):
         want = attn(query, refs, value, SHAPES)
         assert msda_perquery.launches == before[0] + 1
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---- kernels #3–#5, the per-point variants and ablations: both sides take
+# the same packed bf16 values and sum in float32, so 1e-5 of max|ref|
+
+def _per_point(dev, dh=32, nP=4, lo=-0.1, hi=1.1, seed=4):
+    value, loc, aw = _inputs(dev, torch.float32, dh=dh, nP=nP, lo=lo, hi=hi, seed=seed)
+    B, Lq, nH = loc.shape[:3]
+    levels, start = [], 0
+    for H, W in SHAPES:
+        levels.append(value[:, start:start + H * W].reshape(B, H, W, nH, dh))
+        start += H * W
+    return levels, pack_point_levels(loc, aw, SHAPES)
+
+
+def _rel_err(got, want):
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,nP", [(32, 4), (16, 6), (48, 4)])
+def test_colsin_kernel_matches_plain(cuda, dh, nP):
+    levels, pts = _per_point(cuda, dh, nP)
+    vals = pack_values_xminor(levels)
+    cols = column_planes(SHAPES, dh, cuda)
+    before = msda_colsin.launches
+    got = msda_colsin(pts, vals, cols, SHAPES)
+    assert msda_colsin.launches == before + 1
+    assert _rel_err(got, msda_colsin_plain(pts, vals, SHAPES)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,nP", [(32, 4), (16, 6), (48, 4)])
+def test_tpose_kernel_matches_plain(cuda, dh, nP):
+    levels, pts = _per_point(cuda, dh, nP)
+    vals = pack_values_tposed(levels)
+    before = msda_tpose.launches
+    got = msda_tpose(pts, vals, SHAPES)
+    assert msda_tpose.launches == before + 1
+    assert _rel_err(got, msda_tpose_plain(pts, vals, SHAPES)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [256, 1024, 37])
+@pytest.mark.parametrize("mode", ["full", "no_cexp", "stage1_only", "io_only"])
+def test_ablate_kernel_matches_plain(cuda, mode, tile):
+    levels, pts = _per_point(cuda)
+    vals = pack_values_xminor(levels)
+    before = msda_ablate.launches
+    got = msda_ablate(mode, pts, vals, SHAPES, tile)
+    assert msda_ablate.launches == before + 1
+    assert _rel_err(got, msda_ablate_plain(mode, pts, vals, SHAPES)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_per_point_kernels_out_of_range_are_zero(cuda):
+    levels, pts = _per_point(cuda, lo=1.5, hi=3.0)
+    xminor, tposed = pack_values_xminor(levels), pack_values_tposed(levels)
+    for out in (msda_colsin(pts, xminor, column_planes(SHAPES, 32, cuda), SHAPES),
+                msda_tpose(pts, tposed, SHAPES),
+                msda_ablate("full", pts, xminor, SHAPES)):
+        assert out.abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", [ms_deform_attn_colsin, ms_deform_attn_tpose])
+def test_variant_ops_match_gather(cuda, op):
+    # the op casts the values to bf16; the gather takes the same rounded values
+    levels, _ = _per_point(cuda)
+    _, loc, aw = _inputs(cuda, torch.float32, seed=4)
+    levels = [v.bfloat16().float() for v in levels]
+    want = ms_deform_attn_core(torch.cat([v.flatten(1, 2).flatten(2) for v in levels], 1),
+                               SHAPES, loc, aw)
+    assert _rel_err(op(levels, loc, aw), want) <= 1e-5

@@ -47,7 +47,8 @@ def test_bench_size_on_cpu():
     out = benchmark.bench_size("n", 1, res=128, warmup=1, iters=1, device="cpu")
     assert out["basis"] == "cpu_host_clock" and out["device"] == "cpu"
     assert out["latency_ms"] > 0 and out["images_per_sec"] > 0
-    assert out["launches"] == {"msda_fwd": 0, "msda_perquery": 0}
+    assert out["launches"] == {"msda_fwd": 0, "msda_perquery": 0, "msda_colsin": 0,
+                               "msda_tpose": 0, "msda_ablate": 0}
     assert {"size", "batch", "res", "bf16", "iters"} <= set(out)
 
 
