@@ -6,13 +6,18 @@ Phases (any failure exits non-zero before the last line is printed):
   1. require CUDA; print the card's name and power limit; TF32 off for the
      comparisons;
   2. build the CUDA kernels from detrpose_tpu_torch/csrc, one nvcc per
-     source, all at once;
+     source, all at once; print ptxas's registers, stack frame and spills
+     per kernel instantiation, and fail if kernel #1 or #2 has a stack frame
+     or spills;
   3. hold each kernel against its plain PyTorch version on the card at small
      shapes and at the DETRPose-L/N/X eval shapes, float32 (1e-5 of
-     max|ref|) and bf16 values (1% of max|ref|); the per-point kernels #3-#5
-     (every mode of #5, at both of its tiles) at the small and the L shapes
-     on the same packed bf16 values (1e-5 of max|ref|); and check that points
-     outside every map give exactly 0;
+     max|ref|) and bf16 values (1% of max|ref|); kernels #1 and #2 also at
+     shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
+     tiles), at 4 levels, and on a value map that starts 2 elements into its
+     buffer; the per-point kernels #3-#5 (every mode of #5, at both of its
+     tiles) at the small and the L shapes on the same packed bf16 values
+     (1e-5 of max|ref|); and check that points outside every map give
+     exactly 0, and from kernels #1 and #2 also NaN and +-1e30 coordinates;
   4. DETRPose-L at full width (seeded random weights, the reference's
      zero-initialised leaves perturbed), bs 2 at 640 px in float32: the
      forward with msda_backend "auto" (kernel #1) and "pallas" (kernel #2)
@@ -36,11 +41,13 @@ Phases (any failure exits non-zero before the last line is printed):
      bs 32 in deploy and train form and as the exported program, its traced
      split, one bs-1 request, and each kernel (each mode of #5) against its
      plain version at the L shapes, beside the least time the card could
-     take for its own bytes and operations (bound), and the ops of #2-#4
-     with their packing;
+     take for its own bytes and operations (bound), the L2 rate of kernels
+     #1 and #2's corner-row traffic, and the ops of #2-#4 with their
+     packing;
   9. print the kernel table, the card line and, last, the result line.
 """
 import json
+import re
 import subprocess
 import tempfile
 import time
@@ -53,6 +60,7 @@ from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
                                          ms_deform_attn_tpose, msda_ablate, msda_colsin,
                                          msda_forward, msda_perquery, msda_tpose)
+from detrpose_tpu_torch.ops.cuda.msda import gather_plan
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
 from detrpose_tpu_torch.ops.cuda.msda_colsin import msda_colsin_plain
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
@@ -79,6 +87,10 @@ L_SHAPES = dict(B=32, Lq=1080, nH=8, dh=32, nP=4, levels=((80, 80), (40, 40), (2
 N_SHAPES = dict(B=32, Lq=1080, nH=8, dh=16, nP=6, levels=((40, 40), (20, 20)))
 X_SHAPES = dict(B=32, Lq=1080, nH=8, dh=48, nP=4, levels=((80, 80), (40, 40), (20, 20)))
 TEST_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4)))
+# kernels #1 and #2 only: no 16-byte load fits a bf16 head of 12 channels;
+# three points take the kernels' generic point loop; four levels
+ODD_SHAPES = dict(B=1, Lq=37, nH=3, dh=12, nP=3, levels=((7, 9), (5, 3)))
+NL4_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4), (2, 2)))
 # published parameter counts and GFLOPs at 640 px (SURVEY.md, README.md:81-85
 # of the reference)
 PUBLISHED = {"n": (4.1, 9.3), "s": (11.5, 33.1), "m": (20.8, 67.3), "l": (32.8, 107.1),
@@ -95,9 +107,33 @@ def card_line():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log):
+    """[(kernel, registers, stack frame bytes, spill store bytes, spill load
+    bytes)] from an ``nvcc -Xptxas -v`` log; the kernel's mangled name is cut
+    after its template arguments."""
+    rows, fn, frame = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            fn, frame = m.group(1), (0, 0, 0)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frame = tuple(int(x) for x in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            rows.append((fn.split("EEv")[0], int(m.group(1))) + frame)
+            fn = None
+    return rows
+
+
 def zero_launch_counts():
     for k in KERNELS.values():
         k.launches = 0
+
+
+def shifted(t, k=2):
+    """A contiguous copy of ``t`` that starts ``k`` elements into its buffer,
+    as a slice of a wider tensor does."""
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    return out.copy_(t)
 
 
 def msda_inputs(g, dtype, B, Lq, nH, dh, nP, levels, lo=-0.1, hi=1.1):
@@ -233,10 +269,18 @@ def check_kernels(g):
     at the L shapes in bf16 per kernel."""
     errs = {}
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("N", N_SHAPES),
-                       ("X", X_SHAPES)):
+                       ("X", X_SHAPES), ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES),
+                       ("offset", TEST_SHAPES)):
         for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             value, levels, loc, aw = msda_inputs(g, dtype, **shp)
             vflat, locp, awp = pack(value, loc, aw)
+            if label == "offset":
+                value, vflat = shifted(value), shifted(vflat)
+            nH, dh = shp["nH"], shp["dh"]
+            vecs = {"msda_fwd": gather_plan(nH, dh, value.element_size(), value.data_ptr(),
+                                            1).vec,
+                    "msda_perquery": gather_plan(1, dh, vflat.element_size(),
+                                                 vflat.data_ptr(), 1).vec}
             pairs = {"msda_fwd": (msda_forward(value, levels, loc, aw),
                                   ms_deform_attn_core(value, levels, loc, aw)),
                      "msda_perquery": (msda_perquery(vflat, levels, locp, awp),
@@ -246,8 +290,9 @@ def check_kernels(g):
                 got, want = got.float(), want.float()
                 err = (got - want).abs().max().item()
                 scale = want.abs().max().item()
-                print(f"[3] {name:13s} {label:4s} {str(dtype):14s} max|err| {err:.3e} "
-                      f"max|ref| {scale:.3e} (limit {rel:g} of max|ref|)")
+                print(f"[3] {name:13s} {label:6s} {str(dtype):14s} {vecs[name]} channels per "
+                      f"load, max|err| {err:.3e} max|ref| {scale:.3e} (limit {rel:g} of "
+                      f"max|ref|)")
                 if not err <= rel * scale:
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
                 if label == "L" and dtype == torch.bfloat16:
@@ -287,7 +332,27 @@ def check_kernels(g):
             fail(f"{name}: points outside every map must give exactly 0")
     print("[3] msda_fwd, msda_perquery, msda_colsin, msda_tpose and msda_ablate full: "
           "points outside the maps give exactly 0")
+    for dtype in (torch.float32, torch.bfloat16):
+        value, levels, loc, aw = msda_inputs(g, dtype, **TEST_SHAPES, lo=0.0, hi=1.0)
+        loc = off_map(g, loc)
+        vflat, locp, awp = pack(value, loc, aw)
+        for name, out in (("msda_fwd", msda_forward(value, levels, loc, aw)),
+                          ("msda_perquery", msda_perquery(vflat, levels, locp, awp))):
+            if out.abs().max().item() != 0.0:
+                fail(f"{name}: NaN and +-1e30 coordinates must give exactly 0 ({dtype})")
+    print("[3] msda_fwd and msda_perquery: points with a NaN or +-1e30 coordinate give "
+          "exactly 0, float32 and bf16")
     return errs
+
+
+def off_map(g, loc):
+    """``loc`` with one or both coordinates of every point set to NaN, 1e30 or
+    -1e30, each drawn at random."""
+    bad = torch.tensor([float("nan"), 1e30, -1e30], device=loc.device)
+    which = torch.randint(0, 3, loc.shape[:-1], device=loc.device, generator=g)
+    pick = bad[torch.randint(0, 3, loc.shape, device=loc.device, generator=g)]
+    hit = torch.stack([which != 1, which != 0], dim=-1)    # x, y, or both
+    return torch.where(hit, pick, loc)
 
 
 def check_l_model(gen):
@@ -452,9 +517,11 @@ def main():
         logs = dict(zip(KERNELS, pool.map(lambda k: k.build(), KERNELS.values())))
     print(f"[2] built {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    ptxas {name}:", line.strip())
+        for fn, regs, frame, spill_st, spill_ld in ptxas_report(log):
+            print(f"    ptxas {name}: {fn}: {regs} registers, {frame} bytes stack frame, "
+                  f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
+            if name in ("msda_fwd", "msda_perquery") and (frame or spill_st or spill_ld):
+                fail(f"{fn} has a stack frame or spills")
 
     # ---- 3. kernels vs plain
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -533,6 +600,22 @@ def main():
                   f"({row[3]}); on {card}")
             (modes if label.startswith("msda_ablate") else rows)[label] = row
         rows["msda_ablate"] = modes[f"msda_ablate full tile {TILES[0]}"]
+        # kernel #1 at each load width: the map placed 1, 2 and 4 elements
+        # into its buffer takes 2-, 4- and 8-byte loads
+        by_width = {16: rows["msda_fwd"][0]}
+        for k in (1, 2, 4):
+            v = shifted(value, k)
+            nb = 2 * gather_plan(L_SHAPES["nH"], dh, 2, v.data_ptr(), 1).vec
+            by_width[nb] = cuda_time_ms(lambda v=v: msda_forward(v, levels, loc, aw), iters=50)
+            del v
+        print("[8] msda_fwd at L shapes by bytes per load: " + ", ".join(
+            f"{nb} B {ms:.4f} ms" for nb, ms in sorted(by_width.items())) + f"; on {card}")
+        # kernels #1 and #2 read one dh-wide head row per corner
+        gather_bytes = 4 * aw.numel() * dh * value.element_size()
+        for name in ("msda_fwd", "msda_perquery"):
+            print(f"[8] {name}: corner-row traffic {gather_bytes / 1e6:.1f} MB through L2 "
+                  f"in {rows[name][0]:.4f} ms = {gather_bytes / rows[name][0] / 1e9:.3f} "
+                  f"TB/s; on {card}")
         maps = level_maps(value, levels, L_SHAPES["nH"])
         op_ms = {name: cuda_time_ms(fn, iters=50) for name, fn in (
             ("msda_perquery", lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw)),
@@ -563,7 +646,8 @@ def main():
                                 for s, (i, r) in sizes.items()},
                       "l_deploy_ms": fwd_ms[True], "l_train_ms": fwd_ms[False],
                       "l_exported_ms": export_ms, "pallas_bench_ms": bench_ms,
-                      "op_with_packing_ms": op_ms, "msda_v2": v2, "msda_ablate_tool": ablate,
+                      "op_with_packing_ms": op_ms, "msda_fwd_ms_by_load_bytes": by_width,
+                      "msda_v2": v2, "msda_ablate_tool": ablate,
                       "msda_ablate_modes": {k: dict(zip(("ms", "plain_ms", "bound_ms",
                                                          "bound_by"), r))
                                             for k, r in modes.items()}}))

@@ -14,128 +14,74 @@
 //   aw    (B, Lq, nH, nL, nP)       float, softmaxed attention weights
 //   out   (B, Lq, nH*dh)            value dtype
 //
-// Design: one block per (b, query); blockDim = nH*dh threads (256 for
-// DETRPose-L, 128 for N, 384 for X). The block stages that query's
-// nH*nL*nP locations and weights in shared memory. Each thread owns one
-// (head, channel) and loops over levels x points x 4 corners; each corner is
-// zeroed on its own when it lies outside the map (grid_sample zeros padding,
-// align_corners=False: ix = x*W - 0.5). The sum is kept in float. Neighbouring
-// threads read neighbouring channels of one value row, so each corner of one
-// head is one dh-wide contiguous segment (64 bytes for bf16 dh=32).
+// What bounds it on an H100. DRAM bytes: at DETRPose-L eval shapes (B 32,
+// Lq 1080, levels 80/40/20, nH 8, dh 32, nP 4, bf16) one call must read the
+// value map once (138 MB), the locations (27 MB) and weights (13 MB) and
+// write the output (18 MB), 0.058 ms at 3.35 TB/s; the arithmetic is far
+// below the float32 peak. The gather itself moves more: 3.3 M samples x 4
+// corners x one 64-byte head row = 849 MB from L2 to the SMs. One image's
+// map (4.3 MB) stays in the 50 MB L2 while its queries run, so without
+// reuse in L1 the call ends near that traffic at the L2's rate.
 //
-// What bounds it on an H100: bytes. At DETRPose-L eval shapes (B 32, Lq 1080,
-// levels 80/40/20, nH 8, dh 32, nP 4) one call must read the value map once
-// (32*8400*256*2 B = 138 MB in bf16), the locations (27 MB) and weights
-// (13 MB), and write the output (18 MB): about 0.2 GB, 0.06 ms at 3.35 TB/s.
-// The arithmetic (about 0.85 GFLOP) is far below the float32 peak. The corner
-// reads are scattered 64-byte segments, about 1 GB of requests through L2, so
-// the gather's L2 traffic rather than DRAM is what this simple form spends
-// its time on; query tiling, TMA staging and wider per-thread loads are later
-// work.
+// Design: the threads run over (query, channel vector) pairs, MSDA_THREADS
+// to a block. A thread owns V consecutive channels of one head (V = 8 for
+// bf16 when dh*2 bytes and the map's address are multiples of 16), so a
+// query takes nH*dh/V threads: one warp at L, whose 512-byte output row is
+// one coalesced store. Each thread reads its head's points by __ldg (the
+// dh/V threads of a head read the same words) and samples them with
+// msda::sum_levels from msda_gather.cuh: one 16-byte load per corner, all
+// corners of a level in flight together, no branch at the corners. So a
+// warp-wide load moves 512 bytes, and the coordinate arithmetic runs once
+// per V channels.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "msda_gather.cuh"
 
-#define MSDA_MAX_LEVELS 4
-
-struct MsdaLevels {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <typename T>
-__global__ void msda_fwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const float* __restrict__ aw,
-                                T* __restrict__ out,
-                                MsdaLevels lv, int S, int Lq, int nH, int nL,
-                                int nP, int dh) {
-  extern __shared__ float smem[];
-  const int n_pts = nH * nL * nP;
-  float* s_loc = smem;              // 2 * n_pts
-  float* s_aw = smem + 2 * n_pts;   // n_pts
-
-  const long long bq = blockIdx.x;  // b * Lq + q
-  const long long b = bq / Lq;
-  const float* loc_q = loc + bq * n_pts * 2;
-  const float* aw_q = aw + bq * n_pts;
-  for (int i = threadIdx.x; i < 2 * n_pts; i += blockDim.x) s_loc[i] = loc_q[i];
-  for (int i = threadIdx.x; i < n_pts; i += blockDim.x) s_aw[i] = aw_q[i];
-  __syncthreads();
-
+template <typename T, int V, int NP>
+__global__ void __launch_bounds__(MSDA_THREADS, MSDA_MIN_BLOCKS)
+msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                const float* __restrict__ aw, T* __restrict__ out, MsdaLevels lv,
+                int S, int Lq, int nH, int nL, int nP, int dh, long long n_threads) {
+  const long long t = (long long)blockIdx.x * MSDA_THREADS + threadIdx.x;
+  if (t >= n_threads) return;
   const int C = nH * dh;
-  const int c = threadIdx.x;
+  const int lanes = C / V;           // threads per query
+  const long long bq = t / lanes;    // b * Lq + q
+  const int c = (int)(t - bq * lanes) * V;
   const int h = c / dh;
-  const T* v_b = value + b * S * C + c;
-
-  float acc = 0.f;
-  for (int l = 0; l < nL; ++l) {
-    const int H = lv.h[l];
-    const int W = lv.w[l];
-    const float Hf = (float)H;
-    const float Wf = (float)W;
-    const T* v_l = v_b + (long long)lv.start[l] * C;
-    for (int p = 0; p < nP; ++p) {
-      const int k = (h * nL + l) * nP + p;
-      const float ix = s_loc[2 * k] * Wf - 0.5f;
-      const float iy = s_loc[2 * k + 1] * Hf - 0.5f;
-      const float x0 = floorf(ix);
-      const float y0 = floorf(iy);
-      const float x1 = x0 + 1.f;
-      const float y1 = y0 + 1.f;
-      // Validity is tested in float so that NaN or huge coordinates give an
-      // invalid corner rather than an undefined integer conversion.
-      const bool vx0 = x0 >= 0.f && x0 <= Wf - 1.f;
-      const bool vx1 = x1 >= 0.f && x1 <= Wf - 1.f;
-      const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
-      const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
-      float s = 0.f;
-      if (vx0 && vy0)
-        s += (x1 - ix) * (y1 - iy) * load_f32(v_l + ((long long)y0 * W + (long long)x0) * C);
-      if (vx0 && vy1)
-        s += (x1 - ix) * (iy - y0) * load_f32(v_l + ((long long)y1 * W + (long long)x0) * C);
-      if (vx1 && vy0)
-        s += (ix - x0) * (y1 - iy) * load_f32(v_l + ((long long)y0 * W + (long long)x1) * C);
-      if (vx1 && vy1)
-        s += (ix - x0) * (iy - y0) * load_f32(v_l + ((long long)y1 * W + (long long)x1) * C);
-      acc += s * s_aw[k];
-    }
-  }
-  store_from_f32(out + bq * C + c, acc);
+  const long long b = bq / Lq;
+  const long long k = (bq * nH + h) * nL * nP;  // the head's first point
+  float acc[V] = {};
+  msda::sum_levels<T, V, NP>(value + b * S * C + c, C, lv, nL, nP, loc + 2 * k, aw + k,
+                             acc);
+  msda::store<T, V>(out + bq * C + c, acc);
 }
 
 template <typename T>
 static int launch(const void* value, const void* loc, const void* aw, void* out,
-                  MsdaLevels lv, int B, int S, int Lq, int nH, int nL, int nP,
-                  int dh, void* stream) {
-  const int threads = nH * dh;
-  const size_t smem = (size_t)3 * nH * nL * nP * sizeof(float);
-  const unsigned int blocks = (unsigned int)((long long)B * Lq);
-  msda_fwd_kernel<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)value, (const float*)loc, (const float*)aw, (T*)out, lv, S, Lq,
-      nH, nL, nP, dh);
-  return (int)cudaGetLastError();
+                  MsdaLevels lv, int B, int S, int Lq, int nH, int nL, int nP, int dh,
+                  int vec, int blocks, void* stream) {
+  const long long n_threads = (long long)B * Lq * (nH * dh / vec);
+  return msda::dispatch<T>(vec, nP, [&](auto v, auto np) {
+    msda_fwd_kernel<T, decltype(v)::value, decltype(np)::value>
+        <<<blocks, MSDA_THREADS, 0, (cudaStream_t)stream>>>(
+            (const T*)value, (const float*)loc, (const float*)aw, (T*)out, lv, S, Lq, nH,
+            nL, nP, dh, n_threads);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int msda_fwd_f32(const void* value, const void* loc, const void* aw,
                             void* out, MsdaLevels lv, int B, int S, int Lq,
-                            int nH, int nL, int nP, int dh, void* stream) {
-  return launch<float>(value, loc, aw, out, lv, B, S, Lq, nH, nL, nP, dh, stream);
+                            int nH, int nL, int nP, int dh, int vec, int blocks,
+                            void* stream) {
+  return launch<float>(value, loc, aw, out, lv, B, S, Lq, nH, nL, nP, dh, vec, blocks,
+                       stream);
 }
 
 extern "C" int msda_fwd_bf16(const void* value, const void* loc, const void* aw,
                              void* out, MsdaLevels lv, int B, int S, int Lq,
-                             int nH, int nL, int nP, int dh, void* stream) {
-  return launch<__nv_bfloat16>(value, loc, aw, out, lv, B, S, Lq, nH, nL, nP, dh,
-                               stream);
+                             int nH, int nL, int nP, int dh, int vec, int blocks,
+                             void* stream) {
+  return launch<__nv_bfloat16>(value, loc, aw, out, lv, B, S, Lq, nH, nL, nP, dh, vec,
+                               blocks, stream);
 }

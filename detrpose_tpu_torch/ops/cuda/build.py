@@ -3,8 +3,9 @@
 Each kernel is a plain C entry point compiled by ``nvcc`` for ``sm_90a``
 (Hopper) into ``detrpose_tpu_torch/_build/`` and loaded with ``ctypes``. The
 build happens at first use, from the package's own sources; the library's
-name carries a hash of the source and flags, so an edited source is rebuilt
-and never mixed up with an old build. Nothing here runs at import time.
+name carries a hash of the source, the headers beside it and the flags, so an
+edited source or header is rebuilt and never mixed up with an old build.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -58,6 +59,16 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, every ``*.cuh`` header in its directory and the nvcc
+    flags: what the library built from ``src`` depends on."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(source: str) -> Tuple[ctypes.CDLL, str]:
     """Build ``csrc/<source>`` if needed and return (library, compiler log).
 
@@ -68,9 +79,7 @@ def load_library(source: str) -> Tuple[ctypes.CDLL, str]:
         if source in _LOADED.libs:
             return _LOADED.libs[source]
         src = CSRC / source
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+        lib_path = BUILD_DIR / f"lib{src.stem}_{source_digest(src)}.so"
         log = ""
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,6 +9,9 @@ the note at the top of the source for its design and what bounds it.
 on a CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
 the plain version ``ops/ms_deform_attn.py::ms_deform_attn_core``.
 ``msda_forward.launches`` counts kernel launches and nothing else.
+``gather_plan`` is the launch plan of kernels #1 and #2 (the channels each
+thread loads, threads per query, blocks), plain Python so that the CPU tests
+can hold it.
 
 The model calls it as the custom op ``torch.ops.detrpose_tpu_torch.msda_fwd``,
 so that ``torch.export`` keeps the kernel call in the graph (it cannot trace
@@ -26,7 +29,7 @@ pointers (``point_table``), input checks (``check_points``) and launch
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -34,8 +37,9 @@ from ..ms_deform_attn import SpatialShapes, flatten_levels, ms_deform_attn_core
 from .build import load_library
 
 MAX_LEVELS = 4               # MSDA_MAX_LEVELS in the sources
-MAX_THREADS = 1024           # threads per block: one per (head, channel)
 MAX_SMEM = 48 * 1024         # dynamic shared memory a launch gets without opting in
+BLOCK_THREADS = 256          # MSDA_THREADS in csrc/msda_gather.cuh
+MAX_BLOCKS = 2 ** 31 - 1     # a grid's x dimension
 
 
 class _Levels(ctypes.Structure):
@@ -65,10 +69,28 @@ def pairs(level_hw: Sequence[int]) -> List[Tuple[int, int]]:
     return [(int(level_hw[i]), int(level_hw[i + 1])) for i in range(0, len(level_hw), 2)]
 
 
+class GatherPlan(NamedTuple):
+    """A launch of kernel #1 or #2 (csrc/msda_gather.cuh)."""
+    vec: int       # channels each thread loads at once, 16, 8, 4 or 2 bytes
+    lanes: int     # threads per row (a query, or a query of one head)
+    blocks: int    # of BLOCK_THREADS threads
+
+
+def gather_plan(n_heads: int, dh: int, itemsize: int, ptr: int, rows: int) -> GatherPlan:
+    """The launch of ``rows`` rows of ``n_heads`` heads of ``dh`` channels of
+    ``itemsize`` bytes, from a value map at address ``ptr``: the widest load
+    of at most 16 bytes that both the head width and the address allow."""
+    nbytes = next((n for n in (16, 8, 4)
+                   if n > itemsize and dh * itemsize % n == 0 and ptr % n == 0), itemsize)
+    vec = nbytes // itemsize
+    lanes = n_heads * dh // vec
+    return GatherPlan(vec, lanes, -(-rows * lanes // BLOCK_THREADS))
+
+
 # The C entry points of kernels #1 and #2: value, locations, weights and
-# output pointers, the level table, seven ints, the stream; they return
-# cudaGetLastError().
-_ARGTYPES = [ctypes.c_void_p] * 4 + [_Levels] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# output pointers, the level table, seven ints of shape, the plan's vec and
+# blocks, the stream; they return cudaGetLastError().
+_ARGTYPES = [ctypes.c_void_p] * 4 + [_Levels] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def bind(source: str, names: Sequence[str], argtypes: Sequence = _ARGTYPES):
@@ -193,13 +215,15 @@ class MSDAForward:
         out = torch.empty((B, Lq, C), dtype=value.dtype, device=dev)
         if out.numel() == 0:
             return out
+        plan = gather_plan(nH, C // nH, value.element_size(), value.data_ptr(), B * Lq)
         lib, _ = _load()
         fn = lib.msda_fwd_bf16 if value.dtype == torch.bfloat16 else lib.msda_fwd_f32
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(value.data_ptr(), sampling_locations.data_ptr(),
                      attention_weights.data_ptr(), out.data_ptr(),
-                     level_table(spatial_shapes), B, S, Lq, nH, nL, nP, C // nH, stream)
+                     level_table(spatial_shapes), B, S, Lq, nH, nL, nP, C // nH, plan.vec,
+                     plan.blocks, stream)
         if err != 0:
             raise RuntimeError(f"msda_fwd kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -232,10 +256,10 @@ class MSDAForward:
         if value.shape[0] != B or value.shape[1] != S or C % nH:
             raise ValueError(f"msda_forward: value {tuple(value.shape)} does not match "
                              f"B={B}, S={S}, nH={nH}")
-        if C > MAX_THREADS:
-            raise ValueError(f"msda_forward: nH*dh={C} exceeds {MAX_THREADS} threads")
-        if 12 * nH * nL * nP > MAX_SMEM:   # 3 floats per point: x, y, weight
-            raise ValueError("msda_forward: too many sampling points per query")
+        if gather_plan(nH, C // nH, value.element_size(), value.data_ptr(),
+                       B * Lq).blocks > MAX_BLOCKS:
+            raise ValueError(f"msda_forward: {B * Lq} queries of {C} channels need too "
+                             "large a grid")
 
 
 msda_forward = MSDAForward()

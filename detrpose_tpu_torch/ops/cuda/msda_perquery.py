@@ -25,10 +25,10 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ms_deform_attn import SpatialShapes, bilinear_sample
-from .msda import MAX_LEVELS, bind, flat_hw, level_table, pairs
+from .msda import MAX_BLOCKS, MAX_LEVELS, bind, flat_hw, gather_plan, level_table, pairs
 
-MAX_DH = 64          # two channels per lane
-MAX_POINTS = 32      # nL*nP: one weight scalar per lane
+MAX_DH = 64          # the widest head the op takes
+MAX_POINTS = 32      # nL*nP per query the op takes
 
 
 def _load():
@@ -103,12 +103,14 @@ class MSDAPerQuery:
         out = torch.empty((B, nH, Lq, dh), dtype=value.dtype, device=dev)
         if out.numel() == 0:
             return out
+        plan = gather_plan(1, dh, value.element_size(), value.data_ptr(), B * nH * Lq)
         lib, _ = _load()
         fn = lib.msda_perquery_bf16 if value.dtype == torch.bfloat16 else lib.msda_perquery_f32
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
-                     level_table(spatial_shapes), B, nH, S, Lq, nL, nP, dh, stream)
+                     level_table(spatial_shapes), B, nH, S, Lq, nL, nP, dh, plan.vec,
+                     plan.blocks, stream)
         if err != 0:
             raise RuntimeError(f"msda_perquery kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -146,8 +148,11 @@ class MSDAPerQuery:
             raise ValueError(f"msda_perquery: locations {tuple(loc.shape)} and weights "
                              f"{tuple(aw.shape)} do not fit value {tuple(value.shape)} "
                              f"and {nL} levels (at most {MAX_POINTS} points per query)")
-        if nH > 65535 or B > 65535:
-            raise ValueError(f"msda_perquery: grid of {nH} heads x {B} images too large")
+        Lq = loc.shape[2]
+        if gather_plan(1, dh, value.element_size(), value.data_ptr(),
+                       B * nH * Lq).blocks > MAX_BLOCKS:
+            raise ValueError(f"msda_perquery: {B * nH * Lq} (image, head, query) rows "
+                             "need too large a grid")
 
 
 msda_perquery = MSDAPerQuery()

@@ -38,9 +38,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, dtype, B=2, Lq=135, nH=8, dh=32, nP=4, lo=-0.1, hi=1.1, seed=0):
+def _inputs(dev, dtype, B=2, Lq=135, nH=8, dh=32, nP=4, lo=-0.1, hi=1.1, seed=0,
+            shapes=SHAPES):
     rng = np.random.default_rng(seed)
-    S, nL = sum(h * w for h, w in SHAPES), len(SHAPES)
+    S, nL = sum(h * w for h, w in shapes), len(shapes)
     value = torch.from_numpy(rng.normal(size=(B, S, nH * dh)).astype(np.float32))
     loc = torch.from_numpy(rng.uniform(lo, hi, (B, Lq, nH, nL, nP, 2)).astype(np.float32))
     aw = rng.random((B, Lq, nH, nL, nP)).astype(np.float32)
@@ -141,6 +142,57 @@ def test_module_pallas_launches_perquery_once(cuda):
         want = attn(query, refs, value, SHAPES)
         assert msda_perquery.launches == before[0] + 1
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---- kernels #1 and #2 off their 16-byte path: a bf16 head of 12 channels
+# (8-byte loads), 3 points (the generic point loop), odd level sizes and a
+# ragged last block; 4 levels; a map that starts 2 elements into its buffer
+
+OFF_PATH = {"odd": dict(B=1, Lq=37, nH=3, dh=12, nP=3, shapes=[(7, 9), (5, 3)]),
+            "levels4": dict(shapes=SHAPES + [(2, 2)]),
+            "offset": {}}
+
+
+def _shifted(t, k=2):
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    return out.copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", sorted(OFF_PATH))
+def test_kernels_match_plain_off_the_16_byte_path(cuda, dtype, rel, case):
+    kw = OFF_PATH[case]
+    value, loc, aw = _inputs(cuda, dtype, seed=5, **kw)
+    shapes = kw.get("shapes", SHAPES)
+    vflat, locp, awp = _packed(value, loc, aw)
+    if case == "offset":
+        value, vflat = _shifted(value), _shifted(vflat)
+        assert value.data_ptr() % 16 and vflat.data_ptr() % 16
+    for kernel, args, plain in (
+            (msda_forward, (value, shapes, loc, aw), ms_deform_attn_core),
+            (msda_perquery, (vflat, shapes, locp, awp), msda_perquery_plain)):
+        before = kernel.launches
+        got = kernel(*args).float()
+        want = plain(*args).float()
+        assert kernel.launches == before + 1
+        assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_nan_and_huge_points_are_zero(cuda, dtype):
+    # one or both coordinates of every point NaN, 1e30 or -1e30; the plain
+    # version carries a NaN through, the kernels give exactly 0
+    value, loc, aw = _inputs(cuda, dtype, lo=0.0, hi=1.0, seed=6)
+    rng = np.random.default_rng(7)
+    bad = rng.choice(np.array([np.nan, 1e30, -1e30], np.float32), loc.shape)
+    which = rng.integers(0, 3, loc.shape[:-1])
+    hit = np.stack([which != 1, which != 0], axis=-1)
+    loc = torch.where(torch.from_numpy(hit).to(cuda), torch.from_numpy(bad).to(cuda), loc)
+    vflat, locp, awp = _packed(value, loc, aw)
+    assert msda_forward(value, SHAPES, loc, aw).abs().max().item() == 0.0
+    assert msda_perquery(vflat, SHAPES, locp, awp).abs().max().item() == 0.0
 
 
 # ---- kernels #3–#5, the per-point variants and ablations: both sides take

@@ -189,6 +189,13 @@ def test_wrapper_checks_raise(bad):
         shapes = shapes[:2]
     with pytest.raises((TypeError, ValueError)):
         MSDAForward._check(value, shapes, loc, aw)
+    # the same inputs made right pass, also with the map 2 elements into its
+    # buffer (the kernel then loads narrower vectors, tests/test_torch_msda_plan.py)
+    vals, loc, aw = _msda_inputs(B=1, Lq=4, seed=5)
+    value, shapes = flatten_levels([_T(v) for v in vals])
+    MSDAForward._check(value, shapes, _T(loc), _T(aw))
+    shifted = torch.zeros(value.numel() + 2)[2:].view(value.shape).copy_(value)
+    MSDAForward._check(shifted, shapes, _T(loc), _T(aw))
 
 
 # ---------------------------------------------------------------- hygiene
