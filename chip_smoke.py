@@ -6,8 +6,9 @@ Phases (any failure exits non-zero before the last line is printed):
   1. require CUDA; print the card's name and power limit; TF32 off for the
      comparisons;
   2. build the CUDA kernels from detrpose_tpu_torch/csrc, one nvcc per
-     source, all at once; print ptxas's registers, stack frame and spills
-     per kernel instantiation, and fail if kernel #1 or #2 has a stack frame
+     source, all at once, into an emptied build directory; print ptxas's
+     registers, stack frame and spills per kernel instantiation, and fail if
+     any library has no ptxas report or any instantiation has a stack frame
      or spills;
   3. hold each kernel against its plain PyTorch version on the card at small
      shapes and at the DETRPose-L/N/X eval shapes, float32 (1e-5 of
@@ -15,9 +16,11 @@ Phases (any failure exits non-zero before the last line is printed):
      shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
      tiles), at 4 levels, and on a value map that starts 2 elements into its
      buffer; the per-point kernels #3-#5 (every mode of #5, at both of its
-     tiles) at the small and the L shapes on the same packed bf16 values
-     (1e-5 of max|ref|); and check that points outside every map give
-     exactly 0, and from kernels #1 and #2 also NaN and +-1e30 coordinates;
+     tiles) at the small and the L shapes, #4 and #5 also at dh 12, 4 levels
+     and on maps 2 elements into their buffers, on the same packed bf16
+     values (1e-5 of max|ref|); and check that points outside every map give
+     exactly 0, and NaN and +-1e30 coordinates too, from kernels #1, #2, #4
+     and #5's full, stage1_only and no_cexp;
   4. DETRPose-L at full width (seeded random weights, the reference's
      zero-initialised leaves perturbed), bs 2 at 640 px in float32: the
      forward with msda_backend "auto" (kernel #1) and "pallas" (kernel #2)
@@ -41,13 +44,17 @@ Phases (any failure exits non-zero before the last line is printed):
      bs 32 in deploy and train form and as the exported program, its traced
      split, one bs-1 request, and each kernel (each mode of #5) against its
      plain version at the L shapes, beside the least time the card could
-     take for its own bytes and operations (bound), the L2 rate of kernels
-     #1 and #2's corner-row traffic, and the ops of #2-#4 with their
-     packing;
+     take for its own bytes and operations (bound) and the kernels' own
+     device time (torch.profiler), the L2 rate of kernels #1, #2 and #5
+     full's corner-row traffic, the ops of #2-#4 with their packing, the
+     device times of no_cexp's two passes, and #4's plan and its time by
+     channel groups on the N and L shapes and with its taps from device
+     memory;
   9. print the kernel table, the card line and, last, the result line.
 """
 import json
 import re
+import shutil
 import subprocess
 import tempfile
 import time
@@ -60,13 +67,14 @@ from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
                                          ms_deform_attn_tpose, msda_ablate, msda_colsin,
                                          msda_forward, msda_perquery, msda_tpose)
-from detrpose_tpu_torch.ops.cuda.msda import gather_plan
+from detrpose_tpu_torch.ops.cuda.build import BUILD_DIR
+from detrpose_tpu_torch.ops.cuda.msda import SMEM_OPTIN, TPOSE_BARRIER, gather_plan
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
 from detrpose_tpu_torch.ops.cuda.msda_colsin import msda_colsin_plain
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
                                                       msda_perquery_plain, pack_points,
                                                       pack_value)
-from detrpose_tpu_torch.ops.cuda.msda_tpose import msda_tpose_plain
+from detrpose_tpu_torch.ops.cuda.msda_tpose import MSDATpose, msda_tpose_plain
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
 from detrpose_tpu_torch.ops.msda_pack import (column_planes, pack_values_tposed,
                                               pack_values_xminor)
@@ -76,7 +84,7 @@ from detrpose_tpu_torch.tools.benchmark import launch_counts
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline
 from detrpose_tpu_torch.utils.deploy import fuse_for_deploy
-from detrpose_tpu_torch.utils.measure import cuda_time_ms
+from detrpose_tpu_torch.utils.measure import cuda_time_ms, kernel_times
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -87,8 +95,9 @@ L_SHAPES = dict(B=32, Lq=1080, nH=8, dh=32, nP=4, levels=((80, 80), (40, 40), (2
 N_SHAPES = dict(B=32, Lq=1080, nH=8, dh=16, nP=6, levels=((40, 40), (20, 20)))
 X_SHAPES = dict(B=32, Lq=1080, nH=8, dh=48, nP=4, levels=((80, 80), (40, 40), (20, 20)))
 TEST_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4)))
-# kernels #1 and #2 only: no 16-byte load fits a bf16 head of 12 channels;
-# three points take the kernels' generic point loop; four levels
+# no 16-byte load fits a bf16 head of 12 channels (and #4's column rows are
+# no multiple of 16 bytes); three points take the generic point loop of #1
+# and #2; four levels
 ODD_SHAPES = dict(B=1, Lq=37, nH=3, dh=12, nP=3, levels=((7, 9), (5, 3)))
 NL4_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4), (2, 2)))
 # published parameter counts and GFLOPs at 640 px (SURVEY.md, README.md:81-85
@@ -200,22 +209,17 @@ def per_point_bounds(points, xminor, dh):
             "io_only": msda_bound_ms(nbytes(*ixs) + out_bytes, n_taps)}
 
 
+def tpose_smem(levels, dh, groups):
+    """Kernel #4's shared memory a block at ``groups`` channel groups: the
+    budget that makes its plan take that many."""
+    return TPOSE_BARRIER + sum(-(-(W * (dh // groups) * H * 2) // 16) * 16 for H, W in levels)
+
+
 def device_time_split(fn, wall_ms):
     """One traced call of ``fn``: device time by kernel family, summed from
     torch.profiler's per-kernel self device times (one stream, so the sum is
     the busy time), and the idle share against ``wall_ms``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats its kernels'
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = kernel_times(fn)
     if not kernels:
         print("[8] torch.profiler saw no device time; no split")
         return
@@ -298,13 +302,20 @@ def check_kernels(g):
                 if label == "L" and dtype == torch.bfloat16:
                     errs[name] = err
     # the per-point kernels take the packed bf16 values the TPU ops cast to
-    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES)):
+    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("odd", ODD_SHAPES),
+                       ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES)):
         value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **shp)
         pts, xminor, tposed, cols = per_point(value, levels, loc, aw)
-        pairs = [("msda_colsin", "", msda_colsin(pts, xminor, cols, levels),
-                  msda_colsin_plain(pts, xminor, levels)),
-                 ("msda_tpose", "", msda_tpose(pts, tposed, levels),
+        if label == "offset":     # #4 fills by its threads, #5 loads 2 bytes
+            xminor, tposed = [shifted(v) for v in xminor], [shifted(v) for v in tposed]
+        plan = MSDATpose.plan(tposed, levels, shp["dh"], pts[0][0].shape[-1])
+        pairs = [("msda_tpose", f"{plan.groups} groups", msda_tpose(pts, tposed, levels),
+                  msda_tpose_plain(pts, tposed, levels)),
+                 ("msda_tpose", "device memory", msda_tpose(pts, tposed, levels, _budget=0),
                   msda_tpose_plain(pts, tposed, levels))]
+        if label in ("test", "L"):
+            pairs.append(("msda_colsin", "", msda_colsin(pts, xminor, cols, levels),
+                          msda_colsin_plain(pts, xminor, levels)))
         for mode in MODES:
             want = msda_ablate_plain(mode, pts, xminor, levels)
             pairs += [("msda_ablate", f"{mode} tile {tile}",
@@ -313,7 +324,7 @@ def check_kernels(g):
         for name, what, got, want in pairs:
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            print(f"[3] {name:13s} {what:20s} {label:4s} bf16 values max|err| {err:.3e} "
+            print(f"[3] {name:13s} {what:20s} {label:6s} bf16 values max|err| {err:.3e} "
                   f"max|ref| {scale:.3e} (limit 1e-05 of max|ref|)")
             if not err <= 1e-5 * scale:
                 fail(f"{name} {what} disagrees with its plain version at {label}")
@@ -336,20 +347,33 @@ def check_kernels(g):
         value, levels, loc, aw = msda_inputs(g, dtype, **TEST_SHAPES, lo=0.0, hi=1.0)
         loc = off_map(g, loc)
         vflat, locp, awp = pack(value, loc, aw)
-        for name, out in (("msda_fwd", msda_forward(value, levels, loc, aw)),
-                          ("msda_perquery", msda_perquery(vflat, levels, locp, awp))):
+        outs = [("msda_fwd", msda_forward(value, levels, loc, aw)),
+                ("msda_perquery", msda_perquery(vflat, levels, locp, awp))]
+        if dtype == torch.bfloat16:
+            pts, xminor, tposed, _ = per_point(value, levels, loc, aw)
+            outs += [("msda_tpose", msda_tpose(pts, tposed, levels)),
+                     ("msda_ablate full", msda_ablate("full", pts, xminor, levels))]
+            # stage1_only and no_cexp read only iy: every point's y off the map
+            pts = per_point(value, levels, off_map(g, loc, y_only=True), aw)[0]
+            outs += [(f"msda_ablate {mode}", msda_ablate(mode, pts, xminor, levels))
+                     for mode in ("stage1_only", "no_cexp")]
+        for name, out in outs:
             if out.abs().max().item() != 0.0:
                 fail(f"{name}: NaN and +-1e30 coordinates must give exactly 0 ({dtype})")
-    print("[3] msda_fwd and msda_perquery: points with a NaN or +-1e30 coordinate give "
-          "exactly 0, float32 and bf16")
+    print("[3] msda_fwd and msda_perquery (float32 and bf16), msda_tpose and msda_ablate "
+          "full (bf16 maps): points with a NaN or +-1e30 coordinate give exactly 0; "
+          "msda_ablate stage1_only and no_cexp, which read only y: so do points with a "
+          "NaN or +-1e30 y")
     return errs
 
 
-def off_map(g, loc):
-    """``loc`` with one or both coordinates of every point set to NaN, 1e30 or
-    -1e30, each drawn at random."""
+def off_map(g, loc, y_only=False):
+    """``loc`` with one or both coordinates of every point (the y of every
+    point, ``y_only``) set to NaN, 1e30 or -1e30, each drawn at random."""
     bad = torch.tensor([float("nan"), 1e30, -1e30], device=loc.device)
     which = torch.randint(0, 3, loc.shape[:-1], device=loc.device, generator=g)
+    if y_only:
+        which = which.clamp(min=1)
     pick = bad[torch.randint(0, 3, loc.shape, device=loc.device, generator=g)]
     hit = torch.stack([which != 1, which != 0], dim=-1)    # x, y, or both
     return torch.where(hit, pick, loc)
@@ -494,8 +518,9 @@ def variant_tools(card):
             print(f"[7] msda_v2 {name:>8} (kernel {r['kernel']}): {r['ms']:.4f} ms/call with "
                   f"its packing, max rel err vs the gather {r['max_rel_err']:.3e} on {card}")
     for name, ms in ablate.items():
-        if name != "device":
-            print(f"[7] msda_ablate {name:>20}: {ms:.4f} ms/call on {card}")
+        if name not in ("device", "device_ms"):
+            print(f"[7] msda_ablate {name:>20}: {ms:.4f} ms/call, kernels "
+                  f"{ablate['device_ms'][name]:.4f} ms device time, on {card}")
     print(f"[7] variant tools path: kernel launches {counts}")
     return v2, ablate, counts
 
@@ -512,16 +537,24 @@ def main():
           "cudnn.allow_tf32=False)")
 
     # ---- 2. build
+    # an emptied build directory: every library is built here, so ptxas reports
+    shutil.rmtree(BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         logs = dict(zip(KERNELS, pool.map(lambda k: k.build(), KERNELS.values())))
-    print(f"[2] built {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    print(f"[2] built {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f} s")
+    n_inst = 0
     for name, log in logs.items():
-        for fn, regs, frame, spill_st, spill_ld in ptxas_report(log):
+        report = ptxas_report(log)
+        if not report:
+            fail(f"{name}: no ptxas report; the library was not built in this run")
+        for fn, regs, frame, spill_st, spill_ld in report:
             print(f"    ptxas {name}: {fn}: {regs} registers, {frame} bytes stack frame, "
                   f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
-            if name in ("msda_fwd", "msda_perquery") and (frame or spill_st or spill_ld):
-                fail(f"{fn} has a stack frame or spills")
+            n_inst += 1
+            if frame or spill_st or spill_ld:
+                fail(f"{name}: {fn} has a stack frame or spills")
+    print(f"[2] {n_inst} kernel instantiations, none with a stack frame or spills")
 
     # ---- 3. kernels vs plain
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -588,16 +621,18 @@ def main():
                    lambda mode=mode, tile=tile: msda_ablate(mode, pts, xminor, levels, tile),
                    lambda mode=mode: msda_ablate_plain(mode, pts, xminor, levels))
                   for tile in TILES]
-    rows, modes, plain_ms = {}, {}, {}
+    rows, modes, plain_ms, device_ms = {}, {}, {}, {}
     with torch.no_grad():
         for label, key, kernel, plain in timed:
             k_ms = cuda_time_ms(kernel, iters=50)
+            traced = kernel_times(kernel, n=10)
+            device_ms[label] = sum(k[1] for k in traced)
             if key not in plain_ms:      # a mode's plain version is timed once
                 plain_ms[key] = cuda_time_ms(plain, iters=10)
             row = (k_ms, plain_ms[key]) + bounds[key]
             print(f"[8] {label} at L shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 values): "
-                  f"kernel {k_ms:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} ms "
-                  f"({row[3]}); on {card}")
+                  f"kernel {k_ms:.4f} ms (its kernels' device time {device_ms[label]:.4f} "
+                  f"ms over {sum(k[2] for k in traced)} launches a call), plain {row[1]:.4f} ms, bound {row[2]:.4f} ms ({row[3]}); on {card}")
             (modes if label.startswith("msda_ablate") else rows)[label] = row
         rows["msda_ablate"] = modes[f"msda_ablate full tile {TILES[0]}"]
         # kernel #1 at each load width: the map placed 1, 2 and 4 elements
@@ -616,6 +651,53 @@ def main():
             print(f"[8] {name}: corner-row traffic {gather_bytes / 1e6:.1f} MB through L2 "
                   f"in {rows[name][0]:.4f} ms = {gather_bytes / rows[name][0] / 1e9:.3f} "
                   f"TB/s; on {card}")
+        # kernel #5: full reads the same corner rows; no_cexp's point pass two
+        # 128-byte float rows per point and level, the same bytes
+        full_ms = modes[f"msda_ablate full tile {TILES[0]}"][0]
+        print(f"[8] msda_ablate full tile {TILES[0]}: corner-row traffic "
+              f"{gather_bytes / 1e6:.1f} MB through L2 in {full_ms:.4f} ms = "
+              f"{gather_bytes / full_ms / 1e9:.3f} TB/s; on {card}")
+        passes = {tile: {name.split("(")[0].replace("void ", ""): ms for name, ms, _ in
+                         kernel_times(lambda t=tile: msda_ablate("no_cexp", pts, xminor,
+                                                                 levels, t), n=10)}
+                  for tile in TILES}
+        for tile, by_name in passes.items():
+            print(f"[8] msda_ablate no_cexp tile {tile}, device time per call by kernel "
+                  f"(torch.profiler): " + (", ".join(f"{k} {ms:.4f} ms" for k, ms in
+                                                      by_name.items()) or "not measured")
+                  + f"; on {card}")
+        # kernel #4: its plan at L, and its time by channel groups at the N
+        # and L shapes (a smaller shared-memory budget forces more groups) and
+        # with its taps from device memory (budget 0)
+        by_groups = {}
+        for label, shp, groups in (("N", N_SHAPES, (1, 2, 4, 8)),
+                                   ("L", L_SHAPES, (4, 8, 16, None))):
+            if label == "L":
+                npts, ntposed, nlevels = pts, tposed, levels
+            else:
+                nv, nlevels, nloc, naw = msda_inputs(g, torch.bfloat16, **shp)
+                npts, _, ntposed, _ = per_point(nv, nlevels, nloc, naw)
+            P = npts[0][0].shape[-1]
+            for n in groups:
+                budget = tpose_smem(nlevels, shp["dh"], n) if n else 0
+                plan = MSDATpose.plan(ntposed, nlevels, shp["dh"], P, budget)
+                if (plan.groups if plan.staged else None) != n:
+                    fail(f"msda_tpose: a budget of {budget} bytes gave {plan}")
+                call = (lambda b=budget, q=npts, t=ntposed, v=nlevels:
+                        msda_tpose(q, t, v, _budget=b))
+                ms = cuda_time_ms(call, iters=50)
+                dev = sum(k[1] for k in kernel_times(call, n=10))
+                what = f"{n} groups" if n else "taps from device memory"
+                by_groups[f"{label} {what}"] = {"ms": ms, "device_ms": dev}
+                print(f"[8] msda_tpose at {label} shapes, {what}: {plan.threads} threads, "
+                      f"{plan.blocks} blocks along the points and {plan.smem} bytes of shared "
+                      f"memory a block, bulk fill {plan.bulk}: {ms:.4f} ms (device time "
+                      f"{dev:.4f} ms); on {card}")
+        l_plan = MSDATpose.plan(tposed, levels, dh, pts[0][0].shape[-1])
+        print(f"[8] msda_tpose at L shapes takes {l_plan.groups} groups of {l_plan.chans} "
+              f"channels by its plan ({l_plan.smem} bytes a block; {SMEM_OPTIN} gives "
+              f"{MSDATpose.plan(tposed, levels, dh, pts[0][0].shape[-1], SMEM_OPTIN).groups}); "
+              f"on {card}")
         maps = level_maps(value, levels, L_SHAPES["nH"])
         op_ms = {name: cuda_time_ms(fn, iters=50) for name, fn in (
             ("msda_perquery", lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw)),
@@ -650,7 +732,10 @@ def main():
                       "msda_v2": v2, "msda_ablate_tool": ablate,
                       "msda_ablate_modes": {k: dict(zip(("ms", "plain_ms", "bound_ms",
                                                          "bound_by"), r))
-                                            for k, r in modes.items()}}))
+                                            for k, r in modes.items()},
+                      "msda_ablate_no_cexp_passes_ms": passes,
+                      "kernel_device_ms": device_ms,
+                      "msda_tpose_by_groups": by_groups}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

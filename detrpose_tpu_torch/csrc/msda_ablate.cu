@@ -1,4 +1,4 @@
-// Stage ablations of the per-point MSDA kernel, one template per mode, sm_90a.
+// Stage ablations of the per-point MSDA kernel, sm_90a.
 //
 // Replaces the TPU kernel tools_local_msda_ablate.py::build (kernel :48,
 // pallas_call :129), which times the separable MSDA kernel with its stages
@@ -21,173 +21,181 @@
 //   per level l:  ix, iy, a  (B*nH, P) float, pixel coordinates
 //                 v          (B*nH, H, W*dh) bf16, x-minor
 //   out           (B*nH, P, dh) float
+//   rows          no_cexp's scratch, (B*nH, sum_l H_l, dh) float
 //
-// Design: a block covers one (image, head) and `tile` points (a launch
-// argument, the counterpart of TP), eight warps, each warp one point at a
-// time with lanes over the channels (lane c owns c and c+32). no_cexp first
-// forms the row sums of its (image, head)'s maps in shared memory (the same
-// function, sum_l H_l*dh floats), reading every value of that pair once per
-// block, then takes two taps per point and level from them: the smaller the
-// tile, the more blocks read the same maps again.
+// Design, one for every mode, on the taps of msda_gather.cuh. A block takes
+// `tile` points of one (image, head) (a launch argument, the counterpart of
+// TP). A thread owns V consecutive channels of one point: V = 8 for the bf16
+// maps and 4 for the float row sums, so a corner or a row tap is one 16-byte
+// load (8-, 4- or 2-byte where dh or a level's address rules 16 out;
+// ops/cuda/msda.py::point_plan takes the widest that every level allows).
+// dh/V threads share a point (4 at dh 32, so a warp holds 8 points), and the
+// threads of a warp write whole contiguous output rows, each as V/4 16-byte
+// stores. The point scalars are read by __ldg, the threads of a point
+// reading the same words, and a level's taps are loaded before the first is
+// used, branchless (gather_px, taps_px). One point a thread keeps full at 56
+// registers, so 4 blocks fit an SM; two took 94 registers and ran 13-25%
+// slower on an H100, four spilled (PERF.md). full takes the four corners,
+// stage1_only the two row taps of column 0. no_cexp is two kernels: a row
+// pass that sums each row of each (image, head)'s maps over x once per call
+// (one warp per row, 16-byte loads along it, the lanes that hold the same
+// channels summed by shuffles) into `rows`, then the point pass, two taps per
+// level from those rows. io_only writes each point's sum of ix to its V
+// channels.
 //
 // What bounds it on an H100, at DETRPose-L eval shapes (B 32, nH 8, P 4320,
 // levels 80/40/20, dh 32), each mode by bytes: full 137.6 MB of values,
 // 39.8 MB of points and the 141.6 MB output, 0.095 ms at 3.35 TB/s; no_cexp
 // the values, iy, a and the output; stage1_only iy, a, column 0 and the
-// output; io_only ix and the output.
+// output; io_only ix and the output. Beyond those, full moves 849.3 MB of
+// 64-byte corner rows through L2 (as kernel #1) and no_cexp's point pass
+// 849.3 MB of 128-byte float rows from its 4.6 MB table.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#define MSDA_MAX_LEVELS 4
-#define WARPS 8
+#include "msda_gather.cuh"
 
 enum AblateMode { FULL = 0, NO_CEXP = 1, STAGE1_ONLY = 2, IO_ONLY = 3 };
 
-struct PointLevels {
-  const float* ix[MSDA_MAX_LEVELS];
-  const float* iy[MSDA_MAX_LEVELS];
-  const float* a[MSDA_MAX_LEVELS];
-  const __nv_bfloat16* v[MSDA_MAX_LEVELS];
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-};
-
-template <int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
-msda_ablate_kernel(PointLevels lv, float* __restrict__ out, int P, int nL, int dh,
-                   int tile) {
-  extern __shared__ float rowsum[];  // no_cexp: per level (H, dh), levels in turn
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// The point pass of every mode. T is what a tap reads: the bf16 maps, or
+// no_cexp's float rows.
+template <int MODE, int V>
+__global__ void __launch_bounds__(MSDA_THREADS, MSDA_MIN_BLOCKS)
+msda_ablate_kernel(PointLevels lv, const float* __restrict__ rows, float* __restrict__ out,
+                   int P, int nL, int dh, int tile) {
+  using T = std::conditional_t<MODE == NO_CEXP, float, __nv_bfloat16>;
+  const int lanes = dh / V;  // threads per point
+  const int slots = MSDA_THREADS / lanes;
+  const int slot = threadIdx.x / lanes;
+  if (slot >= slots) return;  // past the block's last whole point
+  const int c = (threadIdx.x - slot * lanes) * V;
   const long long bh = blockIdx.y;
-
-  if (MODE == NO_CEXP) {
-    int start = 0;
+  const int p_end = min(P, ((int)blockIdx.x + 1) * tile);
+  int sum_h = 0;  // rows of one (image, head) in `rows`
 #pragma unroll
-    for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
-      if (l < nL) {
-        const int H = lv.h[l];
-        const int W = lv.w[l];
-        const __nv_bfloat16* v = lv.v[l] + bh * H * W * dh;
-        // thread i sums channel d of row y over the columns; neighbouring
-        // threads read neighbouring channels
-        for (int i = threadIdx.x; i < H * dh; i += blockDim.x) {
-          const int y = i / dh;
-          const int d = i - y * dh;
-          const __nv_bfloat16* r = v + (long long)y * W * dh + d;
-          float s = 0.f;
-#pragma unroll 8
-          for (int x = 0; x < W; ++x) s += __bfloat162float(r[x * dh]);
-          rowsum[start + i] = s;
-        }
-        start += H * dh;
-      }
-    }
-    __syncthreads();
-  }
+  for (int l = 0; l < MSDA_MAX_LEVELS; ++l)
+    if (l < nL) sum_h += lv.h[l];
 
-  const int c0 = lane;
-  const int c1 = lane + 32;
-  const bool has0 = c0 < dh;
-  const bool has1 = c1 < dh;
-  const int p_end = min(P, (int)(blockIdx.x + 1) * tile);
-  for (int p = (int)blockIdx.x * tile + warp; p < p_end; p += WARPS) {
+  for (int p = (int)blockIdx.x * tile + slot; p < p_end; p += slots) {
     const long long pt = bh * P + p;
-    float acc0 = 0.f;
-    float acc1 = 0.f;
-    int start = 0;  // no_cexp: the level's first row sum
+    float acc[V] = {};
+    int start = 0;  // the level's first row in `rows`
 #pragma unroll
     for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
       if (l < nL) {
         const int H = lv.h[l];
         const int W = lv.w[l];
-        const float Hf = (float)H;
-        const float Wf = (float)W;
-        const __nv_bfloat16* v = lv.v[l] + bh * H * W * dh;
-        if (MODE == IO_ONLY) {
-          const float ix = __ldg(lv.ix[l] + pt);
-          acc0 += ix;
-          acc1 += ix;
-        } else if (MODE == FULL) {
-          const float ix = __ldg(lv.ix[l] + pt);
-          const float iy = __ldg(lv.iy[l] + pt);
-          const float a = __ldg(lv.a[l] + pt);
-          const float x0 = floorf(ix);
-          const float y0 = floorf(iy);
-          const float x1 = x0 + 1.f;
-          const float y1 = y0 + 1.f;
-          const bool vx0 = x0 >= 0.f && x0 <= Wf - 1.f;
-          const bool vx1 = x1 >= 0.f && x1 <= Wf - 1.f;
-          const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
-          const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
-          const float wx0 = x1 - ix;
-          const float wx1 = ix - x0;
-          const float wy0 = y1 - iy;
-          const float wy1 = iy - y0;
-#define MSDA_CORNER(VX, VY, XC, YC, WX, WY)                                   \
-          if (VX && VY) {                                                     \
-            const __nv_bfloat16* r = v + ((long long)YC * W + (long long)XC) * dh; \
-            const float w = a * (WX * WY);                                    \
-            if (has0) acc0 += w * __bfloat162float(r[c0]);                    \
-            if (has1) acc1 += w * __bfloat162float(r[c1]);                    \
-          }
-          MSDA_CORNER(vx0, vy0, x0, y0, wx0, wy0)
-          MSDA_CORNER(vx0, vy1, x0, y1, wx0, wy1)
-          MSDA_CORNER(vx1, vy0, x1, y0, wx1, wy0)
-          MSDA_CORNER(vx1, vy1, x1, y1, wx1, wy1)
-#undef MSDA_CORNER
+        if constexpr (MODE == FULL) {
+          msda::gather_px<T, V>(lv.v[l] + bh * H * W * dh + c, H, W, dh, __ldg(lv.ix[l] + pt),
+                                __ldg(lv.iy[l] + pt), __ldg(lv.a[l] + pt), acc);
+        } else if constexpr (MODE == STAGE1_ONLY) {
+          msda::taps_px<T, V>(lv.v[l] + bh * H * W * dh + c, H, W * dh, __ldg(lv.iy[l] + pt),
+                              __ldg(lv.a[l] + pt), acc);
+        } else if constexpr (MODE == NO_CEXP) {
+          msda::taps_px<T, V>(rows + (bh * sum_h + start) * dh + c, H, dh,
+                              __ldg(lv.iy[l] + pt), __ldg(lv.a[l] + pt), acc);
         } else {
-          // two y-taps of a row source: the row sums, or column 0 of the map
-          const float iy = __ldg(lv.iy[l] + pt);
-          const float a = __ldg(lv.a[l] + pt);
-          const float y0 = floorf(iy);
-          const float y1 = y0 + 1.f;
-          const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
-          const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
-#define MSDA_ROW_TAP(VY, YC, WY)                                              \
-          if (VY) {                                                           \
-            const int y = (int)YC;                                            \
-            const float w = a * (WY);                                         \
-            if (MODE == NO_CEXP) {                                            \
-              const float* r = rowsum + start + y * dh;                       \
-              if (has0) acc0 += w * r[c0];                                    \
-              if (has1) acc1 += w * r[c1];                                    \
-            } else {                                                          \
-              const __nv_bfloat16* r = v + (long long)y * W * dh;             \
-              if (has0) acc0 += w * __bfloat162float(r[c0]);                  \
-              if (has1) acc1 += w * __bfloat162float(r[c1]);                  \
-            }                                                                 \
-          }
-          MSDA_ROW_TAP(vy0, y0, y1 - iy)
-          MSDA_ROW_TAP(vy1, y1, iy - y0)
-#undef MSDA_ROW_TAP
+          const float ix = __ldg(lv.ix[l] + pt);
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] += ix;
         }
-        start += H * dh;
+        start += H;
       }
     }
-    float* o = out + pt * dh;
-    if (has0) o[c0] = acc0;
-    if (has1) o[c1] = acc1;
+    msda::store_f32<V>(out + pt * dh + c, acc);
+  }
+}
+
+// no_cexp's row pass: rows[bh, start_l + y, :] = sum_x V_l[bh, y, x, :],
+// one warp per row. A row of W*dh values is W*lanes vectors of V channels,
+// vector k holding channel group k % lanes. The warp takes the groups in
+// windows of up to 32: a lane keeps one group and strides over the pixels
+// by span/width, so every vector it loads is of its group; then the lanes
+// of a group are summed by shuffles.
+template <int V>
+__global__ void __launch_bounds__(MSDA_THREADS)
+msda_rowsum_kernel(PointLevels lv, float* __restrict__ rows, long long n_rows, int nL,
+                   int dh) {
+  using T = __nv_bfloat16;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (MSDA_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // a whole warp: the shuffles below see all 32 lanes
+  int sum_h = 0;
+#pragma unroll
+  for (int l = 0; l < MSDA_MAX_LEVELS; ++l)
+    if (l < nL) sum_h += lv.h[l];
+  const long long bh = row / sum_h;
+  const T* src = lv.v[0];
+  int W = 0;
+  int r = (int)(row - bh * sum_h);
+#pragma unroll
+  for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+    if (l < nL) {
+      if (r >= 0 && r < lv.h[l]) {
+        src = lv.v[l] + (bh * lv.h[l] + r) * lv.w[l] * dh;
+        W = lv.w[l];
+      }
+      r -= lv.h[l];
+    }
+  }
+  const int lanes = dh / V;
+  for (int g0 = 0; g0 < lanes; g0 += 32) {
+    const int width = min(32, lanes - g0);  // groups in this window
+    const int span = 32 / width * width;    // lanes that load
+    const int group = g0 + lane % width;
+    float s[V] = {};
+    if (lane < span) {
+#pragma unroll 4
+      for (int x = lane / width; x < W; x += span / width)
+        msda::fma_row<T, V>(msda::load<T, V>(src + ((long long)x * lanes + group) * V), 1.f,
+                            s);
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if ((width & (width - 1)) == 0) {  // span is 32: a butterfly
+        for (int off = width; off < 32; off <<= 1)
+          s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+      } else {  // lane j < width adds lanes j + k*width < span, as loaded
+        const float own = s[i];
+        for (int k = 1; k < span / width; ++k)
+          s[i] += __shfl_down_sync(0xffffffffu, own, k * width);
+      }
+    }
+    if (lane < width) msda::store_f32<V>(rows + row * dh + group * V, s);
   }
 }
 
 template <int MODE>
-static int launch(PointLevels lv, void* out, int BH, int P, int nL, int dh, int tile,
-                  void* stream) {
-  size_t smem = 0;
-  if (MODE == NO_CEXP)
-    for (int l = 0; l < nL; ++l) smem += (size_t)lv.h[l] * dh * sizeof(float);
+static int launch(PointLevels lv, void* out, void* rows, int BH, int P, int nL, int dh,
+                  int tile, int vec, int row_vec, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (MODE == NO_CEXP) {
+    int sum_h = 0;
+    for (int l = 0; l < nL; ++l) sum_h += lv.h[l];
+    const long long n_rows = (long long)BH * sum_h;
+    const int warps = MSDA_THREADS / 32;
+    const int err = msda::dispatch_vec<__nv_bfloat16>(row_vec, [&](auto v) {
+      msda_rowsum_kernel<decltype(v)::value>
+          <<<(unsigned)((n_rows + warps - 1) / warps), MSDA_THREADS, 0, s>>>(
+              lv, (float*)rows, n_rows, nL, dh);
+      return (int)cudaGetLastError();
+    });
+    if (err) return err;
+  }
+  using T = std::conditional_t<MODE == NO_CEXP, float, __nv_bfloat16>;
   const dim3 grid((P + tile - 1) / tile, BH);
-  msda_ablate_kernel<MODE><<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      lv, (float*)out, P, nL, dh, tile);
-  return (int)cudaGetLastError();
+  return msda::dispatch_vec<T>(vec, [&](auto v) {
+    msda_ablate_kernel<MODE, decltype(v)::value><<<grid, MSDA_THREADS, 0, s>>>(
+        lv, (const float*)rows, (float*)out, P, nL, dh, tile);
+    return (int)cudaGetLastError();
+  });
 }
 
-#define MSDA_ABLATE_ENTRY(NAME, MODE)                                         \
+// The entry points: the point table, out, B*nH, P, nL, dh, no_cexp's row
+// scratch (else NULL), the tile, the point pass's channels per thread, the
+// row pass's (no_cexp, else 0), the stream; they return cudaGetLastError().
+#define MSDA_ABLATE_ENTRY(NAME, MODE)                                           \
   extern "C" int NAME(PointLevels lv, void* out, int BH, int P, int nL, int dh, \
-                      int tile, void* stream) {                               \
-    return launch<MODE>(lv, out, BH, P, nL, dh, tile, stream);                \
+                      void* rows, int tile, int vec, int row_vec, void* stream) {  \
+    return launch<MODE>(lv, out, rows, BH, P, nL, dh, tile, vec, row_vec, stream); \
   }
 
 MSDA_ABLATE_ENTRY(msda_ablate_full, FULL)

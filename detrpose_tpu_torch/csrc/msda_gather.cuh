@@ -1,14 +1,20 @@
-// The bilinear gather shared by the MSDA forward kernels csrc/msda_fwd.cu
-// (kernel #1) and csrc/msda_perquery.cu (kernel #2), sm_90a.
+// The bilinear taps shared by the MSDA kernels of csrc/, sm_90a: the
+// forward kernels csrc/msda_fwd.cu (kernel #1) and csrc/msda_perquery.cu
+// (kernel #2), and the per-point kernels csrc/msda_ablate.cu (kernel #5, all
+// four modes) and csrc/msda_tpose.cu (kernel #4, which takes only the
+// level tables from here).
 //
-// Both kernels compute, for each row (a query of one image, or a query of
-// one (image, head)) and each head in that row, the sum over levels and
+// Kernels #1 and #2 compute, for each row (a query of one image, or a query
+// of one (image, head)) and each head in that row, the sum over levels and
 // points of a * bilinear(value_level, x, y): grid_sample with zeros padding
 // and align_corners=False, ix = x*W - 0.5, iy = y*H - 0.5, every corner
 // zeroed on its own when it lies outside the map, the sum kept in float.
 // They differ only in where a head's value rows and points lie, so each
 // kernel maps its threads to (row, head, channels) and this header does the
-// rest.
+// rest. The taps of one point at pixel coordinates (ix, iy) are corners_px:
+// gather calls it after the conversion; kernel #5 takes its points already
+// in pixels and keeps one sum per point, through gather_px (corners) and
+// taps_px (the two row taps of a one-column source).
 //
 // A thread owns V consecutive channels of one head and reads them with one
 // 16-byte load (V = 8 bf16 or 4 float) through the read-only path; 8-, 4-
@@ -40,6 +46,17 @@ struct MsdaLevels {
   int h[MSDA_MAX_LEVELS];
   int w[MSDA_MAX_LEVELS];
   int start[MSDA_MAX_LEVELS];  // first row of the level in the flattened map
+};
+
+// The per-point kernels' levels: per level the (ix, iy, a) point arrays, the
+// value map, its height and width (ops/cuda/msda.py::_PointLevels).
+struct PointLevels {
+  const float* ix[MSDA_MAX_LEVELS];
+  const float* iy[MSDA_MAX_LEVELS];
+  const float* a[MSDA_MAX_LEVELS];
+  const __nv_bfloat16* v[MSDA_MAX_LEVELS];
+  int h[MSDA_MAX_LEVELS];
+  int w[MSDA_MAX_LEVELS];
 };
 
 namespace msda {
@@ -100,9 +117,77 @@ __device__ __forceinline__ void store(T* p, const float (&acc)[V]) {
   *reinterpret_cast<typename Vec<T, V>::Raw*>(p) = r;
 }
 
-// Samples G points of one level for V channels of one head and adds
-// a * bilinear(x, y) to acc. `level` points at the thread's channels in the
-// level's first pixel; pixel i's are at level + i * stride.
+// p[i] = acc[i] for V floats, as V/4 16-byte stores (V 8 or 4), else one
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float (&acc)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  } else {
+    store<float, V>(p, acc);
+  }
+}
+
+// One point's four corners at pixel coordinates (ix, iy) for V channels of
+// one head: loads their rows into r and their weights a * hat * hat into w.
+// `level` points at the thread's channels in the level's first pixel; pixel
+// i's are at level + i * stride. Corner indices are clamped into the map in
+// float and the weights selected, so a corner off the map, or of a NaN or
+// huge coordinate, loads an in-map row with weight exactly 0.f.
+template <typename T, int V>
+__device__ __forceinline__ void corners_px(const T* __restrict__ level, int H, int W,
+                                           int stride, float ix, float iy, float a,
+                                           typename Vec<T, V>::Raw (&r)[4], float (&w)[4]) {
+  const float Wf = (float)W;
+  const float Hf = (float)H;
+  const float x0 = floorf(ix);
+  const float y0 = floorf(iy);
+  const float x1 = x0 + 1.f;
+  const float y1 = y0 + 1.f;
+  // tested in float: NaN fails every comparison
+  const bool vx0 = x0 >= 0.f && x0 <= Wf - 1.f;
+  const bool vx1 = x1 >= 0.f && x1 <= Wf - 1.f;
+  const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
+  const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
+  // clamped in float before the conversion (fmaxf takes 0 over a NaN), so
+  // every corner address lies in the map
+  const int xi0 = (int)fminf(fmaxf(x0, 0.f), Wf - 1.f);
+  const int xi1 = (int)fminf(fmaxf(x1, 0.f), Wf - 1.f);
+  const int yi0 = (int)fminf(fmaxf(y0, 0.f), Hf - 1.f);
+  const int yi1 = (int)fminf(fmaxf(y1, 0.f), Hf - 1.f);
+  const float wx0 = x1 - ix;
+  const float wx1 = ix - x0;
+  const float wy0 = y1 - iy;
+  const float wy1 = iy - y0;
+  w[0] = (vx0 && vy0) ? a * (wx0 * wy0) : 0.f;
+  w[1] = (vx0 && vy1) ? a * (wx0 * wy1) : 0.f;
+  w[2] = (vx1 && vy0) ? a * (wx1 * wy0) : 0.f;
+  w[3] = (vx1 && vy1) ? a * (wx1 * wy1) : 0.f;
+  const unsigned int s = (unsigned int)stride;
+  r[0] = load<T, V>(level + (size_t)(unsigned int)(yi0 * W + xi0) * s);
+  r[1] = load<T, V>(level + (size_t)(unsigned int)(yi1 * W + xi0) * s);
+  r[2] = load<T, V>(level + (size_t)(unsigned int)(yi0 * W + xi1) * s);
+  r[3] = load<T, V>(level + (size_t)(unsigned int)(yi1 * W + xi1) * s);
+}
+
+// Samples one point of one level at pixel coordinates (ix, iy) and adds
+// a * bilinear(ix, iy) to acc. All 4 corner loads are issued before the
+// first is used.
+template <typename T, int V>
+__device__ __forceinline__ void gather_px(const T* __restrict__ level, int H, int W,
+                                          int stride, float ix, float iy, float a,
+                                          float (&acc)[V]) {
+  typename Vec<T, V>::Raw r[4];
+  float w[4];
+  corners_px<T, V>(level, H, W, stride, ix, iy, a, r, w);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) fma_row<T, V>(r[c], w[c], acc);
+}
+
+// Samples G points of one level at normalized coordinates,
+// ix = x*W - 0.5, iy = y*H - 0.5, and adds every point's a * bilinear to
+// acc: corners_px with each point's conversion just before its corners.
 template <typename T, int V, int G>
 __device__ __forceinline__ void gather(const T* __restrict__ level, int H, int W, int stride,
                                        const float (&x)[G], const float (&y)[G],
@@ -112,43 +197,38 @@ __device__ __forceinline__ void gather(const T* __restrict__ level, int H, int W
   typename Vec<T, V>::Raw r[G][4];
   float w[G][4];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float ix = x[g] * Wf - 0.5f;
-    const float iy = y[g] * Hf - 0.5f;
-    const float x0 = floorf(ix);
-    const float y0 = floorf(iy);
-    const float x1 = x0 + 1.f;
-    const float y1 = y0 + 1.f;
-    // tested in float: NaN fails every comparison
-    const bool vx0 = x0 >= 0.f && x0 <= Wf - 1.f;
-    const bool vx1 = x1 >= 0.f && x1 <= Wf - 1.f;
-    const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
-    const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
-    // clamped in float before the conversion (fmaxf takes 0 over a NaN), so
-    // every corner address lies in the map
-    const int xi0 = (int)fminf(fmaxf(x0, 0.f), Wf - 1.f);
-    const int xi1 = (int)fminf(fmaxf(x1, 0.f), Wf - 1.f);
-    const int yi0 = (int)fminf(fmaxf(y0, 0.f), Hf - 1.f);
-    const int yi1 = (int)fminf(fmaxf(y1, 0.f), Hf - 1.f);
-    const float wx0 = x1 - ix;
-    const float wx1 = ix - x0;
-    const float wy0 = y1 - iy;
-    const float wy1 = iy - y0;
-    w[g][0] = (vx0 && vy0) ? a[g] * (wx0 * wy0) : 0.f;
-    w[g][1] = (vx0 && vy1) ? a[g] * (wx0 * wy1) : 0.f;
-    w[g][2] = (vx1 && vy0) ? a[g] * (wx1 * wy0) : 0.f;
-    w[g][3] = (vx1 && vy1) ? a[g] * (wx1 * wy1) : 0.f;
-    const unsigned int s = (unsigned int)stride;
-    r[g][0] = load<T, V>(level + (size_t)(unsigned int)(yi0 * W + xi0) * s);
-    r[g][1] = load<T, V>(level + (size_t)(unsigned int)(yi1 * W + xi0) * s);
-    r[g][2] = load<T, V>(level + (size_t)(unsigned int)(yi0 * W + xi1) * s);
-    r[g][3] = load<T, V>(level + (size_t)(unsigned int)(yi1 * W + xi1) * s);
-  }
+  for (int g = 0; g < G; ++g)
+    corners_px<T, V>(level, H, W, stride, x[g] * Wf - 0.5f, y[g] * Hf - 0.5f, a[g], r[g], w[g]);
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) fma_row<T, V>(r[g][c], w[g][c], acc);
   }
+}
+
+// The two row taps of one point on a one-column source: adds
+// a * (1-|iy-y|) * row y to acc for y = floor(iy) and floor(iy)+1 where it
+// lies in [0, H) (the column weight 1-|x| is 1 at x = 0). `col` points at
+// the thread's channels of row 0; row y's are at col + y * stride. Rows are
+// clamped in float and the weights selected as in corners_px, and both
+// loads are issued before the first is used.
+template <typename T, int V>
+__device__ __forceinline__ void taps_px(const T* __restrict__ col, int H, int stride,
+                                        float iy, float a, float (&acc)[V]) {
+  const float Hf = (float)H;
+  const float y0 = floorf(iy);
+  const float y1 = y0 + 1.f;
+  const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
+  const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
+  const int yi0 = (int)fminf(fmaxf(y0, 0.f), Hf - 1.f);
+  const int yi1 = (int)fminf(fmaxf(y1, 0.f), Hf - 1.f);
+  const float w0 = vy0 ? a * (y1 - iy) : 0.f;
+  const float w1 = vy1 ? a * (iy - y0) : 0.f;
+  const unsigned int s = (unsigned int)stride;
+  const typename Vec<T, V>::Raw r0 = load<T, V>(col + (size_t)(unsigned int)yi0 * s);
+  const typename Vec<T, V>::Raw r1 = load<T, V>(col + (size_t)(unsigned int)yi1 * s);
+  fma_row<T, V>(r0, w0, acc);
+  fma_row<T, V>(r1, w1, acc);
 }
 
 // One head of one row, all levels: `base` points at the thread's channels
@@ -212,6 +292,26 @@ int dispatch(int vec, int nP, F&& launch) {
       return with_points(std::integral_constant<int, (int)(4 / sizeof(T))>());
     case 2:
       if constexpr (sizeof(T) == 2) return with_points(std::integral_constant<int, 1>());
+      [[fallthrough]];
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Calls launch(std::integral_constant<int, V>) for the vector width `vec`
+// and returns what it returns; cudaErrorInvalidValue for a width T cannot
+// load.
+template <typename T, typename F>
+int dispatch_vec(int vec, F&& launch) {
+  switch (vec * (int)sizeof(T)) {
+    case 16:
+      return launch(std::integral_constant<int, (int)(16 / sizeof(T))>());
+    case 8:
+      return launch(std::integral_constant<int, (int)(8 / sizeof(T))>());
+    case 4:
+      return launch(std::integral_constant<int, (int)(4 / sizeof(T))>());
+    case 2:
+      if constexpr (sizeof(T) == 2) return launch(std::integral_constant<int, 1>());
       [[fallthrough]];
     default:
       return (int)cudaErrorInvalidValue;

@@ -10,8 +10,9 @@ on a CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
 the plain version ``ops/ms_deform_attn.py::ms_deform_attn_core``.
 ``msda_forward.launches`` counts kernel launches and nothing else.
 ``gather_plan`` is the launch plan of kernels #1 and #2 (the channels each
-thread loads, threads per query, blocks), plain Python so that the CPU tests
-can hold it.
+thread loads, threads per query, blocks), ``point_plan`` that of kernel #5
+and ``tpose_plan`` that of kernel #4, plain Python so that the CPU tests can
+hold them.
 
 The model calls it as the custom op ``torch.ops.detrpose_tpu_torch.msda_fwd``,
 so that ``torch.export`` keeps the kernel call in the graph (it cannot trace
@@ -37,9 +38,12 @@ from ..ms_deform_attn import SpatialShapes, flatten_levels, ms_deform_attn_core
 from .build import load_library
 
 MAX_LEVELS = 4               # MSDA_MAX_LEVELS in the sources
-MAX_SMEM = 48 * 1024         # dynamic shared memory a launch gets without opting in
 BLOCK_THREADS = 256          # MSDA_THREADS in csrc/msda_gather.cuh
 MAX_BLOCKS = 2 ** 31 - 1     # a grid's x dimension
+MAX_GRID_YZ = 65535          # a grid's y and z dimensions
+SMEM_OPTIN = 232448          # shared memory a block may opt into on sm_90 (227 KB)
+SMEM_PER_SM = 233472         # shared memory of one SM on sm_90 (228 KB)
+SMEM_RESERVED = 1024         # of it, what each resident block takes for itself
 
 
 class _Levels(ctypes.Structure):
@@ -76,13 +80,19 @@ class GatherPlan(NamedTuple):
     blocks: int    # of BLOCK_THREADS threads
 
 
+def load_width(dh: int, itemsize: int, ptrs: Sequence[int]) -> int:
+    """Channels of ``itemsize`` bytes a thread loads at once from rows of
+    ``dh`` channels in maps at the addresses ``ptrs``: the widest load of at
+    most 16 bytes that the head width and every address allow."""
+    nbytes = next((n for n in (16, 8, 4) if n > itemsize and dh * itemsize % n == 0
+                   and all(p % n == 0 for p in ptrs)), itemsize)
+    return nbytes // itemsize
+
+
 def gather_plan(n_heads: int, dh: int, itemsize: int, ptr: int, rows: int) -> GatherPlan:
     """The launch of ``rows`` rows of ``n_heads`` heads of ``dh`` channels of
-    ``itemsize`` bytes, from a value map at address ``ptr``: the widest load
-    of at most 16 bytes that both the head width and the address allow."""
-    nbytes = next((n for n in (16, 8, 4)
-                   if n > itemsize and dh * itemsize % n == 0 and ptr % n == 0), itemsize)
-    vec = nbytes // itemsize
+    ``itemsize`` bytes, from a value map at address ``ptr``."""
+    vec = load_width(dh, itemsize, (ptr,))
     lanes = n_heads * dh // vec
     return GatherPlan(vec, lanes, -(-rows * lanes // BLOCK_THREADS))
 
@@ -105,7 +115,72 @@ def bind(source: str, names: Sequence[str], argtypes: Sequence = _ARGTYPES):
 
 # ---- the per-point kernels #3–#5 (csrc/msda_{colsin,tpose,ablate}.cu)
 
-MAX_DH = 64          # channels-on-lanes kernels: two channels per lane
+class PointPlan(NamedTuple):
+    """A launch of kernel #5's point pass (csrc/msda_ablate.cu): a thread
+    takes ``vec`` channels of one point."""
+    vec: int       # channels a thread takes at once, 16, 8, 4 or 2 bytes
+    lanes: int     # threads per point
+    slots: int     # points of a block taken together, each by `lanes` threads
+    blocks: int    # blocks along the points of one (image, head)
+
+
+def point_plan(dh: int, itemsize: int, ptrs: Sequence[int], P: int, tile: int) -> PointPlan:
+    """The launch of ``P`` points of one (image, head) per block row, ``tile``
+    to a block, reading rows of ``dh`` channels of ``itemsize`` bytes from the
+    maps at ``ptrs`` (one per level; none for a pass that reads no map);
+    raises where a point needs more threads than a block has."""
+    vec = load_width(dh, itemsize, ptrs)
+    lanes = dh // vec
+    if not 1 <= lanes <= BLOCK_THREADS:
+        raise ValueError(f"a head of {dh} channels, {vec} per thread, needs {lanes} "
+                         f"threads a point (1 to {BLOCK_THREADS})")
+    return PointPlan(vec, lanes, BLOCK_THREADS // lanes, -(-P // tile))
+
+
+TPOSE_THREADS = 512             # TPOSE_THREADS in csrc/msda_tpose.cu
+TPOSE_BARRIER = 16              # the mbarrier at the start of kernel #4's shared memory
+# a block's shared memory when two blocks share an SM, so that one block's
+# fill overlaps the other's taps
+TPOSE_BUDGET = SMEM_PER_SM // 2 - SMEM_RESERVED
+
+
+class TposePlan(NamedTuple):
+    """A launch of kernel #4 (csrc/msda_tpose.cu)."""
+    groups: int                  # blocks per (image, head), one per channel group
+    chans: int                   # channels of a group: dh / groups
+    staged: bool                 # taps from shared memory, else from device memory
+    threads: int                 # per block
+    blocks: int                  # blocks along the points (1 when staged)
+    smem: int                    # dynamic shared memory per block, bytes
+    bulk: Tuple[bool, ...]       # per level: filled by bulk copies, else by the threads
+    offset: Tuple[int, ...]      # per level: byte offset of its maps in shared memory
+
+
+def tpose_plan(shapes: SpatialShapes, dh: int, P: int, ptrs: Sequence[int],
+               budget: int = TPOSE_BUDGET) -> TposePlan:
+    """Kernel #4's launch for the transposed maps of ``shapes`` (at the
+    addresses ``ptrs``) and ``P`` points of one (image, head): the fewest
+    channel groups (a divisor of ``dh``) whose maps fit ``budget`` bytes of
+    shared memory, each group a block that holds its channels of every level
+    and takes every point. Where one channel's maps do not fit, one block
+    per (image, head) and point range reads the taps from device memory."""
+    for chans in sorted((d for d in range(1, dh + 1) if dh % d == 0), reverse=True):
+        offset, end = [], TPOSE_BARRIER
+        for H, W in shapes:
+            offset.append(end)
+            end += -(-int(W) * chans * int(H) * 2 // 16) * 16
+        if end <= budget and dh // chans <= MAX_GRID_YZ:
+            break
+    else:
+        threads = min(TPOSE_THREADS, -(-P // 32) * 32)
+        return TposePlan(1, dh, False, threads, -(-P // threads), 0,
+                         (False,) * len(shapes), (0,) * len(shapes))
+    # a column's run of a group is chans * H values: one bulk copy where it
+    # and the map's address are multiples of 16 bytes
+    bulk = tuple(p % 16 == 0 and chans * int(H) * 2 % 16 == 0
+                 for p, (H, _) in zip(ptrs, shapes))
+    threads = min(TPOSE_THREADS, -(-P // 32) * 32)
+    return TposePlan(dh // chans, chans, True, threads, 1, end, bulk, tuple(offset))
 
 
 class _PointLevels(ctypes.Structure):
@@ -167,7 +242,7 @@ def check_points(name: str, points, values, shapes: SpatialShapes, dh: int,
                 raise ValueError(f"{name}: inputs on {t.device} and {dev}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: inputs must be contiguous")
-    if B * nH > 65535:
+    if B * nH > MAX_GRID_YZ:
         raise ValueError(f"{name}: grid of {B * nH} (image, head) pairs too large")
 
 

@@ -13,10 +13,12 @@ and the x-minor bf16 map (B, nH, H, W*dh), each gives (B, nH, P, dh) float32:
   io_only      sum_l ix_l on every channel; the values are not read
 
 ``msda_ablate(mode, points, values, shapes, tile)`` picks its path by device:
-on a CUDA tensor it launches the mode's kernel with ``tile`` points per block
-(the counterpart of the TPU's point tile TP) or raises, on a CPU tensor it
-runs ``msda_ablate_plain``. ``msda_ablate.launches`` counts kernel launches
-of every mode and nothing else.
+on a CUDA tensor it launches the mode's kernels with ``tile`` points per
+block (the counterpart of the TPU's point tile TP) or raises, on a CPU tensor
+it runs ``msda_ablate_plain``. ``no_cexp`` is two kernels, a row pass that
+sums the maps' rows into a float32 scratch the wrapper allocates, then the
+point pass; the others one. ``msda_ablate.launches`` counts kernel launches
+of every mode, both of ``no_cexp``'s, and nothing else.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from typing import Sequence
 import torch
 
 from ..ms_deform_attn import SpatialShapes, bilinear_sample_px
-from .msda import MAX_DH, MAX_SMEM, POINT_ARGTYPES, bind, check_points, launch_points
+from .msda import (POINT_ARGTYPES, PointPlan, bind, check_points, launch_points, load_width,
+                   point_plan)
 from .msda_colsin import msda_colsin_plain, xminor_dims
 
 MODES = ("full", "no_cexp", "stage1_only", "io_only")
@@ -34,8 +37,9 @@ TILES = (256, 1024)      # points per block, swept by tools/msda_ablate.py
 
 
 def _load():
-    # the point table, out, B*nH, P, nL, dh, then the tile, then the stream
-    argtypes = POINT_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+    # the point table, out, B*nH, P, nL, dh, then no_cexp's row scratch, the
+    # tile, the point pass's and the row pass's channels per thread, the stream
+    argtypes = POINT_ARGTYPES[:-1] + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return bind("msda_ablate.cu", tuple(f"msda_ablate_{m}" for m in MODES), argtypes)
 
 
@@ -62,6 +66,17 @@ def msda_ablate_plain(mode: str, points, values: Sequence[torch.Tensor],
     return out.reshape(B, nH, P, dh)
 
 
+def ablate_plan(mode: str, values: Sequence[torch.Tensor], dh: int, P: int, tile: int,
+                rows_ptr: int = 0) -> tuple[PointPlan, int]:
+    """The point pass's launch and the row pass's channels per thread
+    (``no_cexp``, else 0); ``rows_ptr`` is the address of ``no_cexp``'s row
+    scratch. Raises where a point needs more threads than a block has."""
+    value_ptrs = [v.data_ptr() for v in values]
+    if mode == "no_cexp":
+        return point_plan(dh, 4, (rows_ptr,), P, tile), load_width(dh, 2, value_ptrs)
+    return point_plan(dh, 2, () if mode == "io_only" else value_ptrs, P, tile), 0
+
+
 class MSDAAblate:
     """The ablation kernels; ``launches`` counts CUDA kernel launches."""
 
@@ -85,9 +100,15 @@ class MSDAAblate:
         B, nH, P = points[0][0].shape
         out = torch.empty((B, nH, P, dh), dtype=torch.float32, device=dev)
         if out.numel():
+            rows = (torch.empty((B * nH, sum(int(h) for h, _ in shapes), dh),
+                                dtype=torch.float32, device=dev)
+                    if mode == "no_cexp" else None)
+            plan, row_vec = ablate_plan(mode, values, dh, P, tile,
+                                        0 if rows is None else rows.data_ptr())
             launch_points(f"msda_ablate {mode}", getattr(_load()[0], f"msda_ablate_{mode}"),
-                          points, values, shapes, out, dh, tile)
-            self.launches += 1
+                          points, values, shapes, out, dh,
+                          None if rows is None else rows.data_ptr(), tile, plan.vec, row_vec)
+            self.launches += 2 if mode == "no_cexp" else 1
         return out
 
     @staticmethod
@@ -97,13 +118,14 @@ class MSDAAblate:
             raise ValueError(f"msda_ablate: unknown mode {mode!r} (one of {MODES})")
         dh = values[0].shape[-1] // int(shapes[0][1]) if shapes else 0
         check_points("msda_ablate", points, values, shapes, dh, xminor_dims)
-        if not 1 <= dh <= MAX_DH:
-            raise ValueError(f"msda_ablate: head width {dh} (1 to {MAX_DH})")
+        if dh < 1:
+            raise ValueError(f"msda_ablate: head width {dh}")
         if not isinstance(tile, int) or tile < 1:
             raise ValueError(f"msda_ablate: tile must be a positive int, got {tile!r}")
-        if mode == "no_cexp" and 4 * dh * sum(int(h) for h, _ in shapes) > MAX_SMEM:
-            raise ValueError("msda_ablate: the row sums of no_cexp exceed "
-                             f"{MAX_SMEM} bytes of shared memory")
+        try:
+            ablate_plan(mode, values, dh, points[0][0].shape[-1], tile)
+        except ValueError as e:
+            raise ValueError(f"msda_ablate: {e}") from None
         return dh
 
 

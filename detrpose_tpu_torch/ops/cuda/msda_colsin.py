@@ -30,7 +30,9 @@ import torch
 from ..ms_deform_attn import SpatialShapes, bilinear_sample_px
 from ..msda_pack import (column_planes, level_shapes, pack_points, pack_values_xminor,
                          unpack_output)
-from .msda import MAX_DH, POINT_ARGTYPES, bind, check_points, launch_points
+from .msda import POINT_ARGTYPES, bind, check_points, launch_points
+
+MAX_DH = 64          # the kernel's lanes own two channels each
 
 
 def _load():

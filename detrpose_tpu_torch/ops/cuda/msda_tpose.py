@@ -10,22 +10,46 @@ VMEM; it computes the same function, so it runs this kernel too.
 
 ``msda_tpose`` picks its path by device: on a CUDA tensor it launches the
 kernel (or raises), on a CPU tensor it runs ``msda_tpose_plain``.
-``msda_tpose.launches`` counts kernel launches and nothing else.
+``msda_tpose.launches`` counts kernel launches and nothing else. The kernel
+splits one (image, head)'s maps by channels into groups, each held in the
+shared memory of one block; ``ops/cuda/msda.py::tpose_plan`` picks the groups
+for a block's shared memory budget. ``_budget`` is a hook for the tests and
+the timing sweep: a smaller one forces more groups, 0 the reads from device
+memory, at small shapes.
 ``ms_deform_attn_tpose`` is the tool's op (v2.py:193-212), with no gradient.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
 
 from ..ms_deform_attn import SpatialShapes, bilinear_sample_px
 from ..msda_pack import level_shapes, pack_points, pack_values_tposed, unpack_output
-from .msda import POINT_ARGTYPES, bind, check_points, launch_points
+from .msda import (MAX_LEVELS, POINT_ARGTYPES, TPOSE_BUDGET, TposePlan, bind, check_points,
+                   launch_points, tpose_plan)
+
+
+class _TposePlan(ctypes.Structure):
+    """Mirror of ``struct TposePlan`` in csrc/msda_tpose.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in
+                 ("groups", "chans", "staged", "threads", "blocks", "smem", "bulk")]
+    _fields_ += [("offset", ctypes.c_int * MAX_LEVELS)]
+
+    @classmethod
+    def of(cls, plan: TposePlan) -> "_TposePlan":
+        c = cls(plan.groups, plan.chans, int(plan.staged), plan.threads, plan.blocks,
+                plan.smem, sum(1 << i for i, b in enumerate(plan.bulk) if b))
+        for i, off in enumerate(plan.offset):
+            c.offset[i] = off
+        return c
 
 
 def _load():
-    return bind("msda_tpose.cu", ("msda_tpose",), POINT_ARGTYPES)
+    # the point table, out, B*nH, P, nL, dh, the plan, the stream
+    return bind("msda_tpose.cu", ("msda_tpose",),
+                POINT_ARGTYPES[:-1] + [_TposePlan, POINT_ARGTYPES[-1]])
 
 
 def tposed_dims(H: int, W: int, dh: int):
@@ -59,8 +83,8 @@ class MSDATpose:
         """Build and load the kernel now; returns nvcc's report ("" if cached)."""
         return _load()[1]
 
-    def __call__(self, points, values: Sequence[torch.Tensor],
-                 shapes: SpatialShapes) -> torch.Tensor:
+    def __call__(self, points, values: Sequence[torch.Tensor], shapes: SpatialShapes,
+                 _budget: int = TPOSE_BUDGET) -> torch.Tensor:
         """``points`` per level (ix, iy, a), ``values`` per level transposed
         maps -> (B, nH, dh, P) float32."""
         dev = points[0][0].device
@@ -72,10 +96,17 @@ class MSDATpose:
         B, nH, P = points[0][0].shape
         out = torch.empty((B, nH, dh, P), dtype=torch.float32, device=dev)
         if out.numel():
+            plan = self.plan(values, shapes, dh, P, _budget)
             launch_points("msda_tpose", _load()[0].msda_tpose, points, values, shapes,
-                          out, dh)
+                          out, dh, _TposePlan.of(plan))
             self.launches += 1
         return out
+
+    @staticmethod
+    def plan(values: Sequence[torch.Tensor], shapes: SpatialShapes, dh: int, P: int,
+             budget: int = TPOSE_BUDGET) -> TposePlan:
+        """The kernel's launch for these maps and ``P`` points per (image, head)."""
+        return tpose_plan(shapes, dh, P, [v.data_ptr() for v in values], budget)
 
     @staticmethod
     def _check(points, values, shapes) -> int:
@@ -84,6 +115,9 @@ class MSDATpose:
         check_points("msda_tpose", points, values, shapes, dh, tposed_dims)
         if dh < 1:
             raise ValueError(f"msda_tpose: head width {dh}")
+        if any(int(H) * int(W) * dh >= 2 ** 31 for H, W in shapes):
+            raise ValueError("msda_tpose: one (image, head)'s map of a level past 2**31 "
+                             "values, the kernel's 32-bit tap offsets")
         return dh
 
 

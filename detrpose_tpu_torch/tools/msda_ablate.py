@@ -5,8 +5,12 @@ Counterpart of ``tools_local_msda_ablate.py``, at its shapes (those of
 each of the four modes (``ops/cuda/msda_ablate.py``: ``full``, ``no_cexp``,
 ``stage1_only``, ``io_only``) is timed alone at each point tile per block in
 place of the TPU's TP 512 and 1024. Before the timing each (mode, tile) is
-checked against its plain version within 1e-5 of max|ref|. Prints one line per
-(mode, tile) and one JSON line, ``{"<mode>_tp<tile>": ms, ..., "device": ...}``.
+checked against its plain version within 1e-5 of max|ref|. A (mode, tile)
+has two times: ms per call between CUDA events over back-to-back calls, which
+the host's launch work bounds where a kernel is shorter, and the kernels' own
+device time from torch.profiler. Prints one line per (mode, tile) and one
+JSON line, ``{"<mode>_tp<tile>": ms, ..., "device_ms": {"<mode>_tp<tile>":
+ms, ...}, "device": ...}``.
 
   python -m detrpose_tpu_torch.tools.msda_ablate [--batch 32] [--res 640]
 """
@@ -22,7 +26,7 @@ from ..ops.cuda import msda_ablate
 from ..ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
 from ..ops.msda_pack import level_shapes, pack_points, pack_values_xminor
 from ..utils.device import resolve_device
-from ..utils.measure import cuda_time_ms
+from ..utils.measure import cuda_time_ms, kernel_times
 from .pallas_bench import l_inputs
 
 TOL = 1e-5    # of max|ref|: the same float32 sums in another order
@@ -57,15 +61,20 @@ def run(batch: int = 32, res: int = 640, iters: int = 50,
     """Check, then time, each (mode, tile); the result the tool prints."""
     dev = resolve_device(device)
     points, values, shapes = pack(batch, res, dev)
-    results = {}
+    results, device_ms = {}, {}
     with torch.no_grad():
         check(points, values, shapes)
         for mode in MODES:
             for tile in TILES:
-                ms = cuda_time_ms(lambda m=mode, t=tile: msda_ablate(m, points, values,
-                                                                     shapes, t), iters)
+                def call(m=mode, t=tile):
+                    return msda_ablate(m, points, values, shapes, t)
+                ms = cuda_time_ms(call, iters)
+                dev_ms = sum(k[1] for k in kernel_times(call, iters))
                 results[f"{mode}_tp{tile}"] = ms
-                print(f"{mode:>12} tile={tile}: {ms:8.4f} ms/call", flush=True)
+                device_ms[f"{mode}_tp{tile}"] = dev_ms
+                print(f"{mode:>12} tile={tile}: {ms:8.4f} ms/call, kernels {dev_ms:8.4f} ms "
+                      "device time", flush=True)
+    results["device_ms"] = device_ms
     results["device"] = torch.cuda.get_device_name(dev)
     return results
 

@@ -4,11 +4,13 @@ Counterpart of ``detrpose_tpu/utils/measure.py``. The JAX package times by
 the slope of a scan over two lengths because its TPU runtime's sync could not
 be trusted to bound execution. CUDA events are recorded on the stream the
 work runs on and bound it, so a warmed-up run of many calls between two
-events is the measurement here, and there is no slope.
+events is the measurement here, and there is no slope. Where a call's host
+work (Python, the launch) outlasts its kernels, that time is the host's;
+``kernel_times`` reads the kernels' own device time from torch.profiler.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -29,3 +31,22 @@ def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_times(fn: Callable[[], object], n: int = 1) -> List[Tuple[str, float, int]]:
+    """[(kernel, device ms per call, launches per call)] of the kernels
+    ``fn()`` launches, from torch.profiler's device events over ``n`` calls
+    after one untraced call; [] if it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's self device time repeats its kernels'
+    return [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]

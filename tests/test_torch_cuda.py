@@ -19,11 +19,12 @@ from detrpose_tpu_torch.models.decoder import MSDeformAttn
 from detrpose_tpu_torch.ops.cuda.msda import ms_deform_attn_fast_flat, msda_forward
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (msda_perquery, msda_perquery_plain,
                                                        pack_points, pack_value)
-from detrpose_tpu_torch.ops.cuda.msda_ablate import msda_ablate, msda_ablate_plain
+from detrpose_tpu_torch.ops.cuda.msda import SMEM_OPTIN, TPOSE_BUDGET
+from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, msda_ablate, msda_ablate_plain
 from detrpose_tpu_torch.ops.cuda.msda_colsin import (ms_deform_attn_colsin, msda_colsin,
                                                      msda_colsin_plain)
-from detrpose_tpu_torch.ops.cuda.msda_tpose import (ms_deform_attn_tpose, msda_tpose,
-                                                    msda_tpose_plain)
+from detrpose_tpu_torch.ops.cuda.msda_tpose import (MSDATpose, ms_deform_attn_tpose,
+                                                    msda_tpose, msda_tpose_plain)
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
 from detrpose_tpu_torch.ops.msda_pack import column_planes, pack_values_tposed, pack_values_xminor
 from detrpose_tpu_torch.ops.msda_pack import pack_points as pack_point_levels
@@ -198,14 +199,15 @@ def test_kernels_nan_and_huge_points_are_zero(cuda, dtype):
 # ---- kernels #3–#5, the per-point variants and ablations: both sides take
 # the same packed bf16 values and sum in float32, so 1e-5 of max|ref|
 
-def _per_point(dev, dh=32, nP=4, lo=-0.1, hi=1.1, seed=4):
-    value, loc, aw = _inputs(dev, torch.float32, dh=dh, nP=nP, lo=lo, hi=hi, seed=seed)
+def _per_point(dev, dh=32, nP=4, lo=-0.1, hi=1.1, seed=4, shapes=SHAPES, **kw):
+    value, loc, aw = _inputs(dev, torch.float32, dh=dh, nP=nP, lo=lo, hi=hi, seed=seed,
+                             shapes=shapes, **kw)
     B, Lq, nH = loc.shape[:3]
     levels, start = [], 0
-    for H, W in SHAPES:
+    for H, W in shapes:
         levels.append(value[:, start:start + H * W].reshape(B, H, W, nH, dh))
         start += H * W
-    return levels, pack_point_levels(loc, aw, SHAPES)
+    return levels, pack_point_levels(loc, aw, shapes)
 
 
 def _rel_err(got, want):
@@ -243,7 +245,8 @@ def test_ablate_kernel_matches_plain(cuda, mode, tile):
     vals = pack_values_xminor(levels)
     before = msda_ablate.launches
     got = msda_ablate(mode, pts, vals, SHAPES, tile)
-    assert msda_ablate.launches == before + 1
+    # no_cexp launches its row pass and its point pass
+    assert msda_ablate.launches == before + (2 if mode == "no_cexp" else 1)
     assert _rel_err(got, msda_ablate_plain(mode, pts, vals, SHAPES)) <= 1e-5
 
 
@@ -267,3 +270,94 @@ def test_variant_ops_match_gather(cuda, op):
     want = ms_deform_attn_core(torch.cat([v.flatten(1, 2).flatten(2) for v in levels], 1),
                                SHAPES, loc, aw)
     assert _rel_err(op(levels, loc, aw), want) <= 1e-5
+
+
+# ---- kernels #4 and #5 off their 16-byte path and bulk fill: a bf16 head of
+# 12 channels (8-byte loads; column rows of 168 and 120 bytes, filled by the
+# threads), 3 points, odd level sizes; 4 levels; every map 2 elements into
+# its buffer (2-byte loads; thread fill)
+
+PER_POINT_OFF_PATH = {"odd": dict(B=1, Lq=37, nH=3, dh=12, nP=3, shapes=[(7, 9), (5, 3)]),
+                      "levels4": dict(shapes=SHAPES + [(2, 2)]),
+                      "offset": {}}
+
+
+def _per_point_case(dev, case, **kw):
+    kw = dict(PER_POINT_OFF_PATH[case], **kw)
+    levels, pts = _per_point(dev, seed=8, **kw)
+    shapes = kw.get("shapes", SHAPES)
+    xminor, tposed = pack_values_xminor(levels), pack_values_tposed(levels)
+    if case == "offset":
+        xminor, tposed = [_shifted(v) for v in xminor], [_shifted(v) for v in tposed]
+        assert all(v.data_ptr() % 16 for v in xminor + tposed)
+    return pts, xminor, tposed, shapes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(PER_POINT_OFF_PATH))
+def test_per_point_kernels_match_plain_off_the_16_byte_path(cuda, case):
+    pts, xminor, tposed, shapes = _per_point_case(cuda, case)
+    before = msda_tpose.launches
+    got = msda_tpose(pts, tposed, shapes)
+    assert msda_tpose.launches == before + 1
+    assert _rel_err(got, msda_tpose_plain(pts, tposed, shapes)) <= 1e-5
+    for mode in MODES:
+        want = msda_ablate_plain(mode, pts, xminor, shapes)
+        for tile in (256, 1024, 37):
+            assert _rel_err(msda_ablate(mode, pts, xminor, shapes, tile), want) <= 1e-5
+
+
+def _off_map(pts, seed, y_only=False):
+    """``pts`` with one or both coordinates of every point (the y of every
+    point, ``y_only``) NaN, 1e30 or -1e30."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ix, iy, a in pts:
+        bad = rng.choice(np.array([np.nan, 1e30, -1e30], np.float32), (2,) + ix.shape)
+        which = rng.integers(1 if y_only else 0, 3, ix.shape)
+        hit = [torch.from_numpy(h).to(ix.device) for h in (which != 1, which != 0)]
+        bad = torch.from_numpy(bad).to(ix.device)
+        out.append((torch.where(hit[0], bad[0], ix), torch.where(hit[1], bad[1], iy), a))
+    return out
+
+
+@pytest.mark.gpu
+def test_per_point_kernels_nan_and_huge_points_are_zero(cuda):
+    # #4 and #5 full: one or both coordinates of every point NaN, 1e30 or
+    # -1e30; stage1_only and no_cexp read only y, so the y of every point
+    # (io_only sums ix by definition, so it is not among them)
+    levels, pts = _per_point(cuda, lo=0.0, hi=1.0, seed=9)
+    xminor, tposed = pack_values_xminor(levels), pack_values_tposed(levels)
+    bad_pts = _off_map(pts, 10)
+    assert msda_tpose(bad_pts, tposed, SHAPES).abs().max().item() == 0.0
+    assert msda_ablate("full", bad_pts, xminor, SHAPES).abs().max().item() == 0.0
+    bad_y = _off_map(pts, 11, y_only=True)
+    for mode in ("stage1_only", "no_cexp"):
+        assert msda_ablate(mode, bad_y, xminor, SHAPES).abs().max().item() == 0.0, mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget,groups", [(SMEM_OPTIN, 1), (TPOSE_BUDGET, 1), (10768, 2),
+                                           (5392, 4), (3000, 8), (0, None)])
+def test_tpose_at_forced_group_counts(cuda, budget, groups):
+    # a smaller shared-memory budget splits one (image, head)'s maps into
+    # more channel groups, one block each; below one channel's maps (688
+    # bytes here) the taps come from device memory
+    levels, pts = _per_point(cuda, seed=11)
+    tposed = pack_values_tposed(levels)
+    plan = MSDATpose.plan(tposed, SHAPES, 32, pts[0][0].shape[-1], budget)
+    assert (plan.groups if plan.staged else None) == groups
+    got = msda_tpose(pts, tposed, SHAPES, _budget=budget)
+    assert _rel_err(got, msda_tpose_plain(pts, tposed, SHAPES)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_tpose_past_one_channel_a_block(cuda):
+    # the L pyramid at 1920 px: one channel's maps (151.2 KB) exceed the
+    # budget, so the kernel reads its taps from device memory
+    shapes = [(240, 240), (120, 120), (60, 60)]
+    levels, pts = _per_point(cuda, seed=12, shapes=shapes, B=1, Lq=16, nH=2)
+    tposed = pack_values_tposed(levels)
+    assert not MSDATpose.plan(tposed, shapes, 32, pts[0][0].shape[-1]).staged
+    got = msda_tpose(pts, tposed, shapes)
+    assert _rel_err(got, msda_tpose_plain(pts, tposed, shapes)) <= 1e-5

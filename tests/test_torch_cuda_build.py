@@ -18,7 +18,8 @@ def csrc_copy(tmp_path):
     return shutil.copytree(CSRC, tmp_path / "csrc")
 
 
-@pytest.mark.parametrize("source", ["msda_fwd.cu", "msda_perquery.cu"])
+@pytest.mark.parametrize("source", ["msda_fwd.cu", "msda_perquery.cu", "msda_ablate.cu",
+                                    "msda_tpose.cu"])
 @pytest.mark.parametrize("edited", ["msda_gather.cuh", "source"])
 def test_digest_follows_source_and_header(csrc_copy, source, edited):
     src = csrc_copy / source
@@ -34,6 +35,12 @@ def test_digest_matches_the_package_tree(csrc_copy):
     for name in ("msda_fwd.cu", "msda_perquery.cu", "msda_colsin.cu"):
         assert source_digest(csrc_copy / name) == source_digest(CSRC / name)
     assert source_digest(CSRC / "msda_fwd.cu") != source_digest(CSRC / "msda_perquery.cu")
+
+
+def test_header_users_include_it():
+    # the four kernels on the shared taps include the header the digest covers
+    for name in ("msda_fwd.cu", "msda_perquery.cu", "msda_ablate.cu", "msda_tpose.cu"):
+        assert '#include "msda_gather.cuh"' in (CSRC / name).read_text(), name
 
 
 def test_included_headers_are_in_csrc():
