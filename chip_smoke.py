@@ -8,19 +8,20 @@ Phases (any failure exits non-zero before the last line is printed):
   2. build the CUDA kernels from detrpose_tpu_torch/csrc, one nvcc per
      source, all at once, into an emptied build directory; print ptxas's
      registers, stack frame and spills per kernel instantiation, and fail if
-     any library has no ptxas report or any instantiation has a stack frame
-     or spills;
+     any library has no ptxas report or another count of instantiations
+     than its source makes, or any instantiation has a stack frame or
+     spills;
   3. hold each kernel against its plain PyTorch version on the card at small
      shapes and at the DETRPose-L/N/X eval shapes, float32 (1e-5 of
      max|ref|) and bf16 values (1% of max|ref|); kernels #1 and #2 also at
      shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
      tiles), at 4 levels, and on a value map that starts 2 elements into its
-     buffer; the per-point kernels #3-#5 (every mode of #5, at both of its
-     tiles) at the small and the L shapes, #4 and #5 also at dh 12, 4 levels
-     and on maps 2 elements into their buffers, on the same packed bf16
-     values (1e-5 of max|ref|); and check that points outside every map give
-     exactly 0, and NaN and +-1e30 coordinates too, from kernels #1, #2, #4
-     and #5's full, stage1_only and no_cexp;
+     buffer; the per-point kernels #3-#5 (#3 at tiles 256 and 512, every
+     mode of #5 at both of its tiles) at the small and the L shapes, at dh
+     12, 4 levels and on maps 2 elements into their buffers, on the same
+     packed bf16 values (1e-5 of max|ref|); and check that points outside
+     every map give exactly 0, and NaN and +-1e30 coordinates too, from
+     kernels #1, #2, #3, #4 and #5's full, stage1_only and no_cexp;
   4. DETRPose-L at full width (seeded random weights, the reference's
      zero-initialised leaves perturbed), bs 2 at 640 px in float32: the
      forward with msda_backend "auto" (kernel #1) and "pallas" (kernel #2)
@@ -45,11 +46,13 @@ Phases (any failure exits non-zero before the last line is printed):
      split, one bs-1 request, and each kernel (each mode of #5) against its
      plain version at the L shapes, beside the least time the card could
      take for its own bytes and operations (bound) and the kernels' own
-     device time (torch.profiler), the L2 rate of kernels #1, #2 and #5
-     full's corner-row traffic, the ops of #2-#4 with their packing, the
-     device times of no_cexp's two passes, and #4's plan and its time by
-     channel groups on the N and L shapes and with its taps from device
-     memory;
+     device time (torch.profiler), #3 also at tile 512, the L2 rate of
+     kernels #1, #2, #3 and #5 full's corner-row traffic, the ops of #2-#4
+     with their packing (event and device time), the device times of
+     no_cexp's two passes, #4's plan and its time by channel groups on the N
+     and L shapes and with its taps from device memory, and the library
+     yardstick of #3-#5's function: the reference DETRPose's nL
+     F.grid_sample calls, a composition, not one call;
   9. print the kernel table, the card line and, last, the result line.
 """
 import json
@@ -62,6 +65,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
@@ -70,7 +74,7 @@ from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_defo
 from detrpose_tpu_torch.ops.cuda.build import BUILD_DIR
 from detrpose_tpu_torch.ops.cuda.msda import SMEM_OPTIN, TPOSE_BARRIER, gather_plan
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
-from detrpose_tpu_torch.ops.cuda.msda_colsin import msda_colsin_plain
+from detrpose_tpu_torch.ops.cuda.msda_colsin import TILE, msda_colsin_plain
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
                                                       msda_perquery_plain, pack_points,
                                                       pack_value)
@@ -100,6 +104,12 @@ TEST_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4,
 # and #2; four levels
 ODD_SHAPES = dict(B=1, Lq=37, nH=3, dh=12, nP=3, levels=((7, 9), (5, 3)))
 NL4_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4), (2, 2)))
+# template instantiations of each library: #1 and #2 dtype x load width x
+# nP, #3 load width, #4 level count x taps from shared or device memory, #5
+# mode x load width and no_cexp's row pass
+INSTANTIATIONS = {"msda_fwd": 21, "msda_perquery": 21, "msda_colsin": 4, "msda_tpose": 8,
+                  "msda_ablate": 19}
+COLSIN_TILES = (TILE, 512)     # #3's default tile and the TPU kernel's TP
 # published parameter counts and GFLOPs at 640 px (SURVEY.md, README.md:81-85
 # of the reference)
 PUBLISHED = {"n": (4.1, 9.3), "s": (11.5, 33.1), "m": (20.8, 67.3), "l": (32.8, 107.1),
@@ -209,6 +219,32 @@ def per_point_bounds(points, xminor, dh):
             "io_only": msda_bound_ms(nbytes(*ixs) + out_bytes, n_taps)}
 
 
+def grid_sample_yardstick(value, levels, loc, aw):
+    """The library yardstick of the per-point function of kernels #3-#5: the
+    reference DETRPose's own form, per level one F.grid_sample (bilinear,
+    zeros padding, align_corners=False) of the (B*nH, dh, H, W) bf16 map at
+    the grid (B*nH, P, 1, 2) = 2*loc - 1, weighted by a and summed over the
+    levels -> (B*nH, dh, P, 1). nL calls and their sums, not one call; the
+    maps, grids and weights are laid out here, before any timing. The grid
+    is bf16 as grid_sample takes it in the maps' type, so its samples are
+    rounded where the kernels' are not. Returns the call."""
+    B, Lq, nH, nL, nP, _ = loc.shape
+    maps = [m.permute(0, 3, 4, 1, 2).reshape(B * nH, -1, H, W).contiguous()
+            for m, (H, W) in zip(level_maps(value, levels, nH), levels)]
+    grids = [(2 * loc[:, :, :, lvl] - 1).transpose(1, 2).reshape(B * nH, Lq * nP, 1, 2)
+             .to(value.dtype).contiguous() for lvl in range(nL)]
+    weights = [aw[:, :, :, lvl].transpose(1, 2).reshape(B * nH, 1, Lq * nP, 1)
+               .to(value.dtype).contiguous() for lvl in range(nL)]
+
+    def call():
+        out = 0
+        for m, g, a in zip(maps, grids, weights):
+            out = out + F.grid_sample(m, g, mode="bilinear", padding_mode="zeros",
+                                      align_corners=False) * a
+        return out
+    return call
+
+
 def tpose_smem(levels, dh, groups):
     """Kernel #4's shared memory a block at ``groups`` channel groups: the
     budget that makes its plan take that many."""
@@ -313,9 +349,9 @@ def check_kernels(g):
                   msda_tpose_plain(pts, tposed, levels)),
                  ("msda_tpose", "device memory", msda_tpose(pts, tposed, levels, _budget=0),
                   msda_tpose_plain(pts, tposed, levels))]
-        if label in ("test", "L"):
-            pairs.append(("msda_colsin", "", msda_colsin(pts, xminor, cols, levels),
-                          msda_colsin_plain(pts, xminor, levels)))
+        want = msda_colsin_plain(pts, xminor, levels)
+        pairs += [("msda_colsin", f"tile {tile}", msda_colsin(pts, xminor, cols, levels, tile),
+                   want) for tile in COLSIN_TILES]
         for mode in MODES:
             want = msda_ablate_plain(mode, pts, xminor, levels)
             pairs += [("msda_ablate", f"{mode} tile {tile}",
@@ -350,8 +386,9 @@ def check_kernels(g):
         outs = [("msda_fwd", msda_forward(value, levels, loc, aw)),
                 ("msda_perquery", msda_perquery(vflat, levels, locp, awp))]
         if dtype == torch.bfloat16:
-            pts, xminor, tposed, _ = per_point(value, levels, loc, aw)
-            outs += [("msda_tpose", msda_tpose(pts, tposed, levels)),
+            pts, xminor, tposed, cols = per_point(value, levels, loc, aw)
+            outs += [("msda_colsin", msda_colsin(pts, xminor, cols, levels)),
+                     ("msda_tpose", msda_tpose(pts, tposed, levels)),
                      ("msda_ablate full", msda_ablate("full", pts, xminor, levels))]
             # stage1_only and no_cexp read only iy: every point's y off the map
             pts = per_point(value, levels, off_map(g, loc, y_only=True), aw)[0]
@@ -360,8 +397,8 @@ def check_kernels(g):
         for name, out in outs:
             if out.abs().max().item() != 0.0:
                 fail(f"{name}: NaN and +-1e30 coordinates must give exactly 0 ({dtype})")
-    print("[3] msda_fwd and msda_perquery (float32 and bf16), msda_tpose and msda_ablate "
-          "full (bf16 maps): points with a NaN or +-1e30 coordinate give exactly 0; "
+    print("[3] msda_fwd and msda_perquery (float32 and bf16), msda_colsin, msda_tpose and "
+          "msda_ablate full (bf16 maps): points with a NaN or +-1e30 coordinate give exactly 0; "
           "msda_ablate stage1_only and no_cexp, which read only y: so do points with a "
           "NaN or +-1e30 y")
     return errs
@@ -548,6 +585,9 @@ def main():
         report = ptxas_report(log)
         if not report:
             fail(f"{name}: no ptxas report; the library was not built in this run")
+        if len(report) != INSTANTIATIONS[name]:
+            fail(f"{name}: ptxas reports {len(report)} instantiations, the source makes "
+                 f"{INSTANTIATIONS[name]}")
         for fn, regs, frame, spill_st, spill_ld in report:
             print(f"    ptxas {name}: {fn}: {regs} registers, {frame} bytes stack frame, "
                   f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
@@ -614,6 +654,9 @@ def main():
               lambda: msda_perquery_plain(vflat, levels, locp, awp)),
              ("msda_colsin", "msda_colsin", lambda: msda_colsin(pts, xminor, cols, levels),
               lambda: msda_colsin_plain(pts, xminor, levels)),
+             (f"msda_colsin tile {COLSIN_TILES[1]}", "msda_colsin",
+              lambda: msda_colsin(pts, xminor, cols, levels, COLSIN_TILES[1]),
+              lambda: msda_colsin_plain(pts, xminor, levels)),
              ("msda_tpose", "msda_tpose", lambda: msda_tpose(pts, tposed, levels),
               lambda: msda_tpose_plain(pts, tposed, levels))]
     for mode in MODES:
@@ -627,7 +670,7 @@ def main():
             k_ms = cuda_time_ms(kernel, iters=50)
             traced = kernel_times(kernel, n=10)
             device_ms[label] = sum(k[1] for k in traced)
-            if key not in plain_ms:      # a mode's plain version is timed once
+            if key not in plain_ms:      # a function's plain version is timed once
                 plain_ms[key] = cuda_time_ms(plain, iters=10)
             row = (k_ms, plain_ms[key]) + bounds[key]
             print(f"[8] {label} at L shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 values): "
@@ -645,9 +688,9 @@ def main():
             del v
         print("[8] msda_fwd at L shapes by bytes per load: " + ", ".join(
             f"{nb} B {ms:.4f} ms" for nb, ms in sorted(by_width.items())) + f"; on {card}")
-        # kernels #1 and #2 read one dh-wide head row per corner
+        # kernels #1, #2 and #3 read one dh-wide head row per corner
         gather_bytes = 4 * aw.numel() * dh * value.element_size()
-        for name in ("msda_fwd", "msda_perquery"):
+        for name in ("msda_fwd", "msda_perquery", "msda_colsin"):
             print(f"[8] {name}: corner-row traffic {gather_bytes / 1e6:.1f} MB through L2 "
                   f"in {rows[name][0]:.4f} ms = {gather_bytes / rows[name][0] / 1e9:.3f} "
                   f"TB/s; on {card}")
@@ -699,17 +742,35 @@ def main():
               f"{MSDATpose.plan(tposed, levels, dh, pts[0][0].shape[-1], SMEM_OPTIN).groups}); "
               f"on {card}")
         maps = level_maps(value, levels, L_SHAPES["nH"])
-        op_ms = {name: cuda_time_ms(fn, iters=50) for name, fn in (
-            ("msda_perquery", lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw)),
-            ("msda_fwd per-level", lambda: ms_deform_attn_fast(maps, loc, aw)),
-            ("msda_colsin", lambda: ms_deform_attn_colsin(maps, loc, aw)),
-            ("msda_tpose", lambda: ms_deform_attn_tpose(maps, loc, aw)))}
+        ops = {"msda_perquery": lambda: ms_deform_attn_pallas_flat(value, levels, loc, aw),
+               "msda_fwd per-level": lambda: ms_deform_attn_fast(maps, loc, aw),
+               "msda_colsin": lambda: ms_deform_attn_colsin(maps, loc, aw),
+               "msda_tpose": lambda: ms_deform_attn_tpose(maps, loc, aw)}
+        op_ms = {name: cuda_time_ms(fn, iters=50) for name, fn in ops.items()}
+        # the device's share of an op's time: its packing is many small kernels
+        op_device_ms = {name: sum(k[1] for k in kernel_times(fn, n=10))
+                        for name, fn in ops.items()}
+        yardstick = grid_sample_yardstick(value, levels, loc, aw)
+        ys_ms = cuda_time_ms(yardstick, iters=50)
+        ys_dev = sum(k[1] for k in kernel_times(yardstick, n=10))
+        want = msda_colsin_plain(pts, xminor, levels)
+        got = yardstick().float().reshape(want.shape[:2] + (dh, -1)).transpose(2, 3)
+        ys_err = ((got - want).abs().max() / want.abs().max()).item()
+        del want, got
     print(f"[8] the ops with their packing: msda_perquery from the (B, S, nH*dh) memory "
           f"(the model's call) {op_ms['msda_perquery']:.4f} ms; from per-level maps (the "
           f"tools' call) kernel #1 {op_ms['msda_fwd per-level']:.4f} ms, msda_colsin "
           f"{op_ms['msda_colsin']:.4f} ms, msda_tpose {op_ms['msda_tpose']:.4f} ms; 6 calls "
           f"of kernel #1 = {100 * 6 * rows['msda_fwd'][0] / fwd_ms[False]:.1f}% of the "
           f"train-form forward; on {card}")
+    print("[8] the ops' device time (torch.profiler, every kernel of a call summed): " +
+          ", ".join(f"{name} {ms:.4f} ms" for name, ms in op_device_ms.items()) +
+          f"; on {card}")
+    print(f"[8] library yardstick of #3-#5's per-point function at L shapes: "
+          f"{len(levels)} F.grid_sample calls, not one call (the reference DETRPose's form, "
+          f"bf16 maps and grid): {ys_ms:.4f} ms (device time {ys_dev:.4f} ms), max|err| "
+          f"{ys_err:.3e} of max|ref| against the plain version (its bf16 grid); msda_colsin "
+          f"{rows['msda_colsin'][0]:.4f} ms; on {card}")
 
     # ---- 9. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
@@ -728,7 +789,10 @@ def main():
                                 for s, (i, r) in sizes.items()},
                       "l_deploy_ms": fwd_ms[True], "l_train_ms": fwd_ms[False],
                       "l_exported_ms": export_ms, "pallas_bench_ms": bench_ms,
-                      "op_with_packing_ms": op_ms, "msda_fwd_ms_by_load_bytes": by_width,
+                      "op_with_packing_ms": op_ms, "op_with_packing_device_ms": op_device_ms,
+                      "msda_fwd_ms_by_load_bytes": by_width,
+                      "grid_sample_composition_ms": {"ms": ys_ms, "device_ms": ys_dev,
+                                                     "max_rel_err": ys_err},
                       "msda_v2": v2, "msda_ablate_tool": ablate,
                       "msda_ablate_modes": {k: dict(zip(("ms", "plain_ms", "bound_ms",
                                                          "bound_by"), r))

@@ -10,8 +10,8 @@ on a CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
 the plain version ``ops/ms_deform_attn.py::ms_deform_attn_core``.
 ``msda_forward.launches`` counts kernel launches and nothing else.
 ``gather_plan`` is the launch plan of kernels #1 and #2 (the channels each
-thread loads, threads per query, blocks), ``point_plan`` that of kernel #5
-and ``tpose_plan`` that of kernel #4, plain Python so that the CPU tests can
+thread loads, threads per query, blocks), ``point_plan`` that of kernels #3
+and #5 and ``tpose_plan`` that of kernel #4, plain Python so that the CPU tests can
 hold them.
 
 The model calls it as the custom op ``torch.ops.detrpose_tpu_torch.msda_fwd``,
@@ -116,8 +116,8 @@ def bind(source: str, names: Sequence[str], argtypes: Sequence = _ARGTYPES):
 # ---- the per-point kernels #3–#5 (csrc/msda_{colsin,tpose,ablate}.cu)
 
 class PointPlan(NamedTuple):
-    """A launch of kernel #5's point pass (csrc/msda_ablate.cu): a thread
-    takes ``vec`` channels of one point."""
+    """A launch of kernel #3 (csrc/msda_colsin.cu) or kernel #5's point pass
+    (csrc/msda_ablate.cu): a thread takes ``vec`` channels of one point."""
     vec: int       # channels a thread takes at once, 16, 8, 4 or 2 bytes
     lanes: int     # threads per point
     slots: int     # points of a block taken together, each by `lanes` threads

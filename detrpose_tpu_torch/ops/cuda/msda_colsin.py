@@ -10,11 +10,14 @@ sums them. Kernel #4 (``msda_tpose.py``) is the same function in the
 transposed layout, kernel #5 (``msda_ablate.py``) its stage ablations.
 
 ``msda_colsin`` takes the packed layout of ``ops/msda_pack.py`` and picks its
-path by device: on a CUDA tensor it launches the kernel (or raises), on a CPU
+path by device: on a CUDA tensor it launches the kernel with ``tile`` points
+per block (the counterpart of the TPU's point tile TP) or raises, on a CPU
 tensor it runs ``msda_colsin_plain``. ``msda_colsin.launches`` counts kernel
-launches and nothing else. The column planes are checked and passed as the
-TPU kernel is given them; the CUDA kernel takes each tap's column from ``ix``
-and does not read them (see the source's header).
+launches and nothing else. The launch is ``ops/cuda/msda.py::point_plan``'s,
+as for kernel #5: the widest load every level's map allows, ``dh / vec``
+threads a point. The column planes are checked and passed as the TPU kernel
+is given them; the CUDA kernel takes each tap's column from ``ix`` and does
+not read them (see the source's header).
 
 ``ms_deform_attn_colsin`` is the tool's op (v2.py:128-146): the JAX
 signature, the values cast to bf16 as the TPU op casts them, the packing, the
@@ -23,6 +26,7 @@ gradient: the TPU kernel has none.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -30,13 +34,16 @@ import torch
 from ..ms_deform_attn import SpatialShapes, bilinear_sample_px
 from ..msda_pack import (column_planes, level_shapes, pack_points, pack_values_xminor,
                          unpack_output)
-from .msda import POINT_ARGTYPES, bind, check_points, launch_points
+from .msda import POINT_ARGTYPES, PointPlan, bind, check_points, launch_points, point_plan
 
-MAX_DH = 64          # the kernel's lanes own two channels each
+TILE = 256           # points per block: kernel #5 `full` ran fastest at 256 (PERF.md)
 
 
 def _load():
-    return bind("msda_colsin.cu", ("msda_colsin",), POINT_ARGTYPES)
+    # the point table, out, B*nH, P, nL, dh, then the tile, the channels per
+    # thread, the stream
+    return bind("msda_colsin.cu", ("msda_colsin",),
+                POINT_ARGTYPES[:-1] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def xminor_dims(H: int, W: int, dh: int):
@@ -70,7 +77,7 @@ class MSDAColsin:
         return _load()[1]
 
     def __call__(self, points, values: Sequence[torch.Tensor], cols: Sequence[torch.Tensor],
-                 shapes: SpatialShapes) -> torch.Tensor:
+                 shapes: SpatialShapes, tile: int = TILE) -> torch.Tensor:
         """``points`` per level (ix, iy, a), ``values`` per level x-minor maps,
         ``cols`` per level the (1, W*dh) column planes -> (B, nH, P, dh) float32."""
         dev = points[0][0].device
@@ -78,22 +85,35 @@ class MSDAColsin:
             return msda_colsin_plain(points, values, shapes)
         if dev.type != "cuda":
             raise ValueError(f"msda_colsin: unsupported device {dev}")
-        dh = self._check(points, values, cols, shapes)
+        dh = self._check(points, values, cols, shapes, tile)
         B, nH, P = points[0][0].shape
         out = torch.empty((B, nH, P, dh), dtype=torch.float32, device=dev)
         if out.numel():
+            plan = self.plan(values, dh, P, tile)
             launch_points("msda_colsin", _load()[0].msda_colsin, points, values, shapes,
-                          out, dh)
+                          out, dh, tile, plan.vec)
             self.launches += 1
         return out
 
     @staticmethod
-    def _check(points, values, cols, shapes) -> int:
+    def plan(values: Sequence[torch.Tensor], dh: int, P: int, tile: int = TILE) -> PointPlan:
+        """The kernel's launch for these maps and ``P`` points per (image, head);
+        raises where a point needs more threads than a block has."""
+        return point_plan(dh, 2, [v.data_ptr() for v in values], P, tile)
+
+    @staticmethod
+    def _check(points, values, cols, shapes, tile: int = TILE) -> int:
         """Raises on what the kernel does not take; returns dh."""
         dh = values[0].shape[-1] // int(shapes[0][1]) if shapes else 0
         check_points("msda_colsin", points, values, shapes, dh, xminor_dims)
-        if not 1 <= dh <= MAX_DH:
-            raise ValueError(f"msda_colsin: head width {dh} (1 to {MAX_DH})")
+        if dh < 1:
+            raise ValueError(f"msda_colsin: head width {dh}")
+        if not isinstance(tile, int) or tile < 1:
+            raise ValueError(f"msda_colsin: tile must be a positive int, got {tile!r}")
+        try:
+            MSDAColsin.plan(values, dh, points[0][0].shape[-1], tile)
+        except ValueError as e:
+            raise ValueError(f"msda_colsin: {e}") from None
         if len(cols) != len(shapes):
             raise ValueError(f"msda_colsin: {len(cols)} column planes for "
                              f"{len(shapes)} levels")

@@ -21,8 +21,8 @@ from detrpose_tpu_torch.ops.cuda.msda_perquery import (msda_perquery, msda_perqu
                                                        pack_points, pack_value)
 from detrpose_tpu_torch.ops.cuda.msda import SMEM_OPTIN, TPOSE_BUDGET
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, msda_ablate, msda_ablate_plain
-from detrpose_tpu_torch.ops.cuda.msda_colsin import (ms_deform_attn_colsin, msda_colsin,
-                                                     msda_colsin_plain)
+from detrpose_tpu_torch.ops.cuda.msda_colsin import (MSDAColsin, ms_deform_attn_colsin,
+                                                     msda_colsin, msda_colsin_plain)
 from detrpose_tpu_torch.ops.cuda.msda_tpose import (MSDATpose, ms_deform_attn_tpose,
                                                     msda_tpose, msda_tpose_plain)
 from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
@@ -215,14 +215,26 @@ def _rel_err(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh,nP", [(32, 4), (16, 6), (48, 4)])
+@pytest.mark.parametrize("dh,nP", [(32, 4), (16, 6), (48, 4), (128, 4), (256, 4)])
 def test_colsin_kernel_matches_plain(cuda, dh, nP):
+    # dh 128 and 256: 16 and 32 threads a point, 16 and 8 points a block
     levels, pts = _per_point(cuda, dh, nP)
     vals = pack_values_xminor(levels)
     cols = column_planes(SHAPES, dh, cuda)
     before = msda_colsin.launches
     got = msda_colsin(pts, vals, cols, SHAPES)
     assert msda_colsin.launches == before + 1
+    assert _rel_err(got, msda_colsin_plain(pts, vals, SHAPES)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_colsin_one_point_a_block(cuda):
+    # dh 256 on maps 2 bytes (one element) into their buffers: one channel a
+    # thread, so a point takes all 256 threads of a block
+    levels, pts = _per_point(cuda, 256, 4, B=1, Lq=16, nH=2)
+    vals = [_shifted(v, 1) for v in pack_values_xminor(levels)]
+    assert MSDAColsin.plan(vals, 256, pts[0][0].shape[-1]).slots == 1
+    got = msda_colsin(pts, vals, column_planes(SHAPES, 256, cuda), SHAPES, tile=37)
     assert _rel_err(got, msda_colsin_plain(pts, vals, SHAPES)) <= 1e-5
 
 
@@ -272,7 +284,7 @@ def test_variant_ops_match_gather(cuda, op):
     assert _rel_err(op(levels, loc, aw), want) <= 1e-5
 
 
-# ---- kernels #4 and #5 off their 16-byte path and bulk fill: a bf16 head of
+# ---- kernels #3, #4 and #5 off their 16-byte path and bulk fill: a bf16 head of
 # 12 channels (8-byte loads; column rows of 168 and 120 bytes, filled by the
 # threads), 3 points, odd level sizes; 4 levels; every map 2 elements into
 # its buffer (2-byte loads; thread fill)
@@ -301,6 +313,10 @@ def test_per_point_kernels_match_plain_off_the_16_byte_path(cuda, case):
     got = msda_tpose(pts, tposed, shapes)
     assert msda_tpose.launches == before + 1
     assert _rel_err(got, msda_tpose_plain(pts, tposed, shapes)) <= 1e-5
+    cols = column_planes(shapes, xminor[0].shape[-1] // shapes[0][1], cuda)
+    want = msda_colsin_plain(pts, xminor, shapes)
+    for tile in (256, 1024, 37):
+        assert _rel_err(msda_colsin(pts, xminor, cols, shapes, tile), want) <= 1e-5
     for mode in MODES:
         want = msda_ablate_plain(mode, pts, xminor, shapes)
         for tile in (256, 1024, 37):
@@ -323,12 +339,14 @@ def _off_map(pts, seed, y_only=False):
 
 @pytest.mark.gpu
 def test_per_point_kernels_nan_and_huge_points_are_zero(cuda):
-    # #4 and #5 full: one or both coordinates of every point NaN, 1e30 or
+    # #3, #4 and #5 full: one or both coordinates of every point NaN, 1e30 or
     # -1e30; stage1_only and no_cexp read only y, so the y of every point
     # (io_only sums ix by definition, so it is not among them)
     levels, pts = _per_point(cuda, lo=0.0, hi=1.0, seed=9)
     xminor, tposed = pack_values_xminor(levels), pack_values_tposed(levels)
     bad_pts = _off_map(pts, 10)
+    cols = column_planes(SHAPES, 32, cuda)
+    assert msda_colsin(bad_pts, xminor, cols, SHAPES).abs().max().item() == 0.0
     assert msda_tpose(bad_pts, tposed, SHAPES).abs().max().item() == 0.0
     assert msda_ablate("full", bad_pts, xminor, SHAPES).abs().max().item() == 0.0
     bad_y = _off_map(pts, 11, y_only=True)

@@ -18,8 +18,8 @@ def csrc_copy(tmp_path):
     return shutil.copytree(CSRC, tmp_path / "csrc")
 
 
-@pytest.mark.parametrize("source", ["msda_fwd.cu", "msda_perquery.cu", "msda_ablate.cu",
-                                    "msda_tpose.cu"])
+@pytest.mark.parametrize("source", ["msda_fwd.cu", "msda_perquery.cu", "msda_colsin.cu",
+                                    "msda_ablate.cu", "msda_tpose.cu"])
 @pytest.mark.parametrize("edited", ["msda_gather.cuh", "source"])
 def test_digest_follows_source_and_header(csrc_copy, source, edited):
     src = csrc_copy / source
@@ -38,8 +38,9 @@ def test_digest_matches_the_package_tree(csrc_copy):
 
 
 def test_header_users_include_it():
-    # the four kernels on the shared taps include the header the digest covers
-    for name in ("msda_fwd.cu", "msda_perquery.cu", "msda_ablate.cu", "msda_tpose.cu"):
+    # the five kernels on the shared taps include the header the digest covers
+    for name in ("msda_fwd.cu", "msda_perquery.cu", "msda_colsin.cu", "msda_ablate.cu",
+                 "msda_tpose.cu"):
         assert '#include "msda_gather.cuh"' in (CSRC / name).read_text(), name
 
 

@@ -1,6 +1,6 @@
 """The launch plans of kernels #1 and #2 (``ops/cuda/msda.py::gather_plan``),
-#5 (``point_plan``) and #4 (``tpose_plan``) and the wrappers' input checks,
-on the CPU.
+#3 and #5 (``point_plan``) and #4 (``tpose_plan``) and the wrappers' input
+checks, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py); the
 plans are plain Python: how many channels each thread loads (16 bytes where
@@ -18,8 +18,10 @@ from detrpose_tpu_torch.ops.cuda.msda import (BLOCK_THREADS, SMEM_OPTIN, SMEM_PE
                                               TPOSE_THREADS, MSDAForward, gather_plan,
                                               point_plan, tpose_plan)
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, MSDAAblate, ablate_plan
+from detrpose_tpu_torch.ops.cuda.msda_colsin import MSDAColsin
 from detrpose_tpu_torch.ops.cuda.msda_perquery import MSDAPerQuery
 from detrpose_tpu_torch.ops.cuda.msda_tpose import MSDATpose
+from detrpose_tpu_torch.ops.msda_pack import column_planes
 
 ROWS = 32 * 1080          # B x Lq at the eval shapes
 BASE = 1 << 20            # an address aligned to 16 bytes
@@ -171,6 +173,20 @@ def test_ablate_plan_by_mode(mode):
         assert (plan.vec, plan.lanes, row_vec) == (8, 4, 0)
 
 
+@pytest.mark.parametrize("size,shapes,dh,P", [
+    ("L", L_LEVELS, 32, P_L),
+    ("N", [(40, 40), (20, 20)], 16, 1080 * 6),
+    ("X", L_LEVELS, 48, P_L),
+])
+def test_colsin_plan_is_the_point_plan(size, shapes, dh, P):
+    # kernel #3 is launched as kernel #5 `full`: 16-byte loads at the model shapes
+    _, values = _point_inputs(1, 1, 1, shapes, dh)
+    plan = MSDAColsin.plan(values, dh, P)
+    assert plan == point_plan(dh, 2, [v.data_ptr() for v in values], P, 256)
+    assert plan == ablate_plan("full", values, dh, P, 256)[0]
+    assert (plan.vec, plan.lanes) == (8, dh // 8)
+
+
 # ---- kernel #4 (csrc/msda_tpose.cu): the fewest channel groups whose maps
 # fit one block's shared memory, two blocks to an SM; each group a block
 
@@ -256,7 +272,7 @@ def test_tpose_plan_takes_the_fewest_groups_that_fit():
                                            for n in _level_bytes(shapes, 1)) > budget
 
 
-# ---- the wrappers of #4 and #5 take what their kernels take
+# ---- the wrappers of #3, #4 and #5 take what their kernels take
 
 def _point_inputs(B, nH, P, shapes, dh, transposed=False, offset=0):
     pts = [tuple(torch.zeros(B, nH, P) for _ in range(3)) for _ in shapes]
@@ -285,6 +301,17 @@ def test_per_point_checks_take_what_the_kernels_take(case):
         assert MSDAAblate._check(mode, pts, values, kw["shapes"], 37) == kw["dh"]
     pts, values = _point_inputs(**kw, transposed=True)
     assert MSDATpose._check(pts, values, kw["shapes"]) == kw["dh"]
+
+
+@pytest.mark.parametrize("case", sorted(PER_POINT))
+def test_colsin_checks_take_what_the_kernel_takes(case):
+    # dh 256 on a map 2 bytes into its buffer is 256 threads a point, one
+    # point a block
+    kw = dict(PER_POINT[case])
+    pts, values = _point_inputs(**kw)
+    cols = column_planes(kw["shapes"], kw["dh"], "cpu")
+    assert MSDAColsin._check(pts, values, cols, kw["shapes"], 37) == kw["dh"]
+    assert MSDAColsin.plan(values, kw["dh"], kw["P"]).lanes <= BLOCK_THREADS
 
 
 def test_tpose_plan_struct_carries_the_plan():

@@ -239,7 +239,8 @@ def test_tools_need_cuda():
 
 
 _CHECKS = {
-    "colsin": lambda a: MSDAColsin._check(a["pts"], a["xminor"], a["cols"], a["shapes"]),
+    "colsin": lambda a: MSDAColsin._check(a["pts"], a["xminor"], a["cols"], a["shapes"],
+                                          a["tile"]),
     "tpose": lambda a: MSDATpose._check(a["pts"], a["tposed"], a["shapes"]),
     "ablate": lambda a: MSDAAblate._check(a["mode"], a["pts"], a["xminor"], a["shapes"],
                                           a["tile"]),
@@ -258,8 +259,8 @@ def _break(a, bad):
                     for ix, iy, w in a["pts"]]
     elif bad == "levels":
         a["shapes"] = a["shapes"][:1]
-    elif bad == "dh":      # 257 channels on x-minor rows (past #3's 64, and one per
-        # thread, past a block of #5), 0 on transposed ones
+    elif bad == "dh":      # 257 channels on x-minor rows (one a thread, past a
+        # block of #3 and #5), 0 on transposed ones
         a["xminor"] = [torch.zeros(v.shape[:3] + (v.shape[3] // 32 * 257,), dtype=torch.bfloat16)
                        for v in a["xminor"]]
         a["tposed"] = [torch.zeros(v.shape[:2] + (0, v.shape[3]), dtype=torch.bfloat16)
@@ -274,7 +275,7 @@ def _break(a, bad):
 
 @pytest.mark.parametrize("kernel,bad", [
     (k, b) for k in _CHECKS for b in ("value_dtype", "loc_dtype", "noncontig", "levels", "dh")
-] + [("colsin", "cols"), ("ablate", "mode"), ("ablate", "tile")])
+] + [("colsin", "cols"), ("colsin", "tile"), ("ablate", "mode"), ("ablate", "tile")])
 def test_wrapper_checks_raise(kernel, bad):
     a = dict(zip(("pts", "xminor", "tposed", "shapes"), _packed()), mode="full", tile=256)
     a["cols"] = column_planes(a["shapes"], 32, "cpu")
