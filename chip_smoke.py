@@ -28,7 +28,14 @@ Phases (any failure exits non-zero before the last line is printed):
      against "gather", the plain version (1e-4 absolute on logits and
      normalized keypoints), 6 launches of the chosen kernel and 0 of the
      other;
-  5. the same L deploy-fused against its train form, float32, 1e-4;
+  5. the same L deploy-fused against its train form, float32, 1e-4; and
+     the L training step held against itself across backends (bs 2, 640 px,
+     float32, one CDN batch, the same weights, deterministic algorithms):
+     msda_backend "auto" (kernel #1 forward, plain backward) against
+     "gather" (plain both ways), with equal matcher assignments, every loss
+     term within 1e-4 relative and every parameter gradient within 1e-3 of
+     its leaf's max|g| (of 1e-5 of the largest max|g| where a leaf's
+     gradient is 0 up to rounding), kernel #1 6 launches and 0;
   6. main path 1, serving: build_pipeline("l") in bf16 answers 4 single
      images of different sizes and one batch of 32 at 640 px;
   7. the tools. Main path 2: tools/benchmark.py's model_info and bench_size
@@ -39,6 +46,15 @@ Phases (any failure exits non-zero before the last line is printed):
      (kernel #1 and the per-point kernels #3 and #4, each checked against the
      plain gather) and tools/msda_ablate.py (kernel #5, four modes at two
      tiles, each checked against its plain version), at bs 32 and 640 px.
+     Main path 4, training: the L training step at bs 8, 640 px, bf16
+     autocast, gradient accumulation 2, for 8 micro-steps on a fixed
+     synthetic batch: every loss finite, every trainable parameter got a
+     gradient and moved (but for those whose gradient is 0 up to rounding,
+     below 1e-6, whose steps round away), the backbone's BatchNorm
+     statistics untouched and the encoder's moved, one EMA update per
+     optimiser step, kernel #1 exactly 6 launches per micro-step and kernel
+     #2 none; and a batch with a NaN image leaves the parameters, the AdamW
+     state and the EMA bit for bit as they were.
      Before each main path every launch counter is set to 0, and after it
      each kernel the path runs must have launched;
   8. time, with CUDA events after a warm-up: the L forward + postprocess at
@@ -52,7 +68,13 @@ Phases (any failure exits non-zero before the last line is printed):
      no_cexp's two passes, #4's plan and its time by channel groups on the N
      and L shapes and with its taps from device memory, and the library
      yardstick of #3-#5's function: the reference DETRPose's nL
-     F.grid_sample calls, a composition, not one call;
+     F.grid_sample calls, a composition, not one call; and the L training
+     step (tools/benchmark.py::bench_train_step, bs 8, 640 px, bf16,
+     accumulation 2): ms per micro-step and per optimiser step, images/s,
+     peak memory, a traced split of two micro-steps (device busy, idle
+     share, kernel families, the share of kernel #1's plain-version backward
+     by its profiler range, and that backward timed alone), and the
+     matcher's time with the auction and with scipy;
   9. print the kernel table, the card line and, last, the result line.
 """
 import json
@@ -68,11 +90,13 @@ import torch
 import torch.nn.functional as F
 
 from detrpose_tpu_torch.configs import build_model, model_config
+from detrpose_tpu_torch.models.layers import BatchNorm
 from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
                                          ms_deform_attn_tpose, msda_ablate, msda_colsin,
                                          msda_forward, msda_perquery, msda_tpose)
 from detrpose_tpu_torch.ops.cuda.build import BUILD_DIR
-from detrpose_tpu_torch.ops.cuda.msda import SMEM_OPTIN, TPOSE_BARRIER, gather_plan
+from detrpose_tpu_torch.ops.cuda.msda import (BACKWARD_RANGE, SMEM_OPTIN, TPOSE_BARRIER,
+                                              gather_plan, ms_deform_attn_fast_flat)
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
 from detrpose_tpu_torch.ops.cuda.msda_colsin import TILE, msda_colsin_plain
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
@@ -83,12 +107,16 @@ from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
 from detrpose_tpu_torch.ops.msda_pack import (column_planes, pack_values_tposed,
                                               pack_values_xminor)
 from detrpose_tpu_torch.ops.msda_pack import pack_points as pack_point_levels
+from detrpose_tpu_torch.parallel import make_train_step
+from detrpose_tpu_torch.parallel.train_step import PHASES
 from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda_v2, pallas_bench
-from detrpose_tpu_torch.tools.benchmark import launch_counts
+from detrpose_tpu_torch.tools.benchmark import launch_counts, synthetic_train_batch
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline
+from detrpose_tpu_torch.train.matcher import hungarian_match
+from detrpose_tpu_torch.train.optim import label_parameters, make_optimizer
 from detrpose_tpu_torch.utils.deploy import fuse_for_deploy
-from detrpose_tpu_torch.utils.measure import cuda_time_ms, kernel_times
+from detrpose_tpu_torch.utils.measure import cuda_time_ms, kernel_times, traced
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -104,6 +132,11 @@ TEST_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4,
 # and #2; four levels
 ODD_SHAPES = dict(B=1, Lq=37, nH=3, dh=12, nP=3, levels=((7, 9), (5, 3)))
 NL4_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4), (2, 2)))
+# the L training micro-batch of the reference recipe (configs/_base.py: 16
+# images an optimiser step in 2 micro-batches), and main path 4's length
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 8
+# kernel #1's calls on main path 4: (64 CDN slots + 60 queries) x 18 tokens
+TRAIN_SHAPES = dict(L_SHAPES, B=TRAIN_BATCH, Lq=124 * 18)
 # template instantiations of each library: #1 and #2 dtype x load width x
 # nP, #3 load width, #4 level count x taps from shared or device memory, #5
 # mode x load width and no_cexp's row pass
@@ -270,8 +303,11 @@ def device_time_split(fn, wall_ms):
                     if any(k in name.lower() for k in keys)), "other")
         split[fam] = split.get(fam, 0.0) + ms
     busy = sum(split.values())
+    if busy > wall_ms:
+        fail(f"traced forward: the kernels' device time {busy:.3f} ms exceeds the call's "
+             f"{wall_ms:.3f} ms between CUDA events: kernels miscounted")
     print(f"[8] traced forward: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); by family: " + ", ".join(
+          f"(idle share {1 - busy / wall_ms:.3f}); by family: " + ", ".join(
               f"{f} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
               for f, ms in sorted(split.items(), key=lambda kv: -kv[1])))
     for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:8]:
@@ -308,9 +344,9 @@ def check_kernels(g):
     """Phase 3: each kernel against its plain version; returns the max|err|
     at the L shapes in bf16 per kernel."""
     errs = {}
-    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("N", N_SHAPES),
-                       ("X", X_SHAPES), ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES),
-                       ("offset", TEST_SHAPES)):
+    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("train", TRAIN_SHAPES),
+                       ("N", N_SHAPES), ("X", X_SHAPES), ("odd", ODD_SHAPES),
+                       ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES)):
         for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             value, levels, loc, aw = msda_inputs(g, dtype, **shp)
             vflat, locp, awp = pack(value, loc, aw)
@@ -335,8 +371,8 @@ def check_kernels(g):
                       f"max|ref|)")
                 if not err <= rel * scale:
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
-                if label == "L" and dtype == torch.bfloat16:
-                    errs[name] = err
+                if label in ("L", "train") and dtype == torch.bfloat16:
+                    errs[name] = max(err, errs.get(name, 0.0))
     # the per-point kernels take the packed bf16 values the TPU ops cast to
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("odd", ODD_SHAPES),
                        ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES)):
@@ -562,6 +598,271 @@ def variant_tools(card):
     return v2, ablate, counts
 
 
+def l_train_model(backend):
+    """DETRPose-L in training on the card: seeded weights, the constant
+    leaves perturbed and the selection head scaled by 50 (as phase 4)."""
+    gb = torch.Generator().manual_seed(SEED)
+    model = build_model(model_config("l", msda_backend=backend), device="cuda", generator=gb)
+    perturb_constant_leaves(model, gb)
+    return model.train()
+
+
+def branch_assignments(model, batch):
+    """The matcher's assignments of every supervision branch of one train
+    forward of ``batch`` (no gradient) -> (M, B, G)."""
+    with torch.no_grad():
+        out = model(batch["images"], batch["dn"])
+    branches = [out] + out["aux_outputs"] + [out["aux_pre_outputs"]] + out["aux_interm_outputs"]
+    logits = torch.stack([b["pred_logits"] for b in branches])
+    kpts = torch.stack([b["pred_keypoints"] for b in branches])
+    return logits, kpts, hungarian_match(logits, kpts, batch["targets"], 17)
+
+
+def check_train_backends():
+    """Main path 4's check: one L training micro-step, bs 2, 640 px, float32
+    (TF32 off), through kernel #1 ("auto") and the plain version ("gather"),
+    under deterministic algorithms: the gradients that the encoder's
+    batch-statistics norms cancel to rounding would otherwise change with
+    cuDNN's choice of algorithm from run to run."""
+    batch = synthetic_train_batch(2, 640, 17, 60, "cuda", seed=SEED)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    for backend in ("auto", "gather"):
+        model = l_train_model(backend)
+        step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
+                               compute_dtype=torch.float32, use_ema=False)
+        zero_launch_counts()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {name: (6 if backend == "auto" and name == "msda_fwd" else 0) for name in KERNELS}
+        if counts != want:
+            fail(f"L train micro-step with msda_backend={backend!r} launched {counts}, "
+                 f"expected {want}")
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        runs[backend] = (metrics, grads, branch_assignments(model, batch)[2])
+        print(f"[5] L train micro-step bs2 640 f32, msda_backend={backend!r}: loss "
+              f"{metrics['loss_total'].item():.6f}, launches {counts}")
+        del model, step
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    (ma, ga, aa), (mg, gg, ag) = runs["auto"], runs["gather"]
+    if not torch.equal(aa, ag):
+        fail("L train step: the matcher's assignments differ between 'auto' and 'gather'")
+    worst_loss = max(abs(ma[k].item() - v.item()) / max(abs(v.item()), 1e-12)
+                     for k, v in mg.items() if torch.is_tensor(v))
+    print(f"[5] L train step auto vs gather: {aa.numel()} assignments equal, {len(mg) - 2} "
+          f"loss terms, worst relative difference {worst_loss:.3e} (limit 1e-4)")
+    if not worst_loss <= 1e-4:
+        fail("L train step: the loss terms differ between 'auto' and 'gather'")
+    if ga.keys() != gg.keys():
+        fail("L train step: the backends give gradients to other leaves")
+    # a leaf whose gradient is 0 up to rounding (a bias that the encoder's
+    # batch-statistics norms cancel) is held against 1e-5 of the largest |g|
+    top = max(g.abs().max().item() for g in gg.values())
+    errs = sorted((((ga[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-5 * top),
+                    n, g.abs().max().item()) for n, g in gg.items()), reverse=True)
+    print(f"[5] L train step auto vs gather: {len(gg)} parameter gradients, worst "
+          f"max|diff| / max|g| " + ", ".join(f"{e:.3e} at {n} (max|g| {m:.3e})"
+                                             for e, n, m in errs[:3])
+          + f" (limit 1e-3; floor 1e-5 of the largest |g| {top:.3e})")
+    if not errs[0][0] <= 1e-3:
+        fail("L train step: the gradients differ between 'auto' and 'gather'")
+    torch.cuda.empty_cache()
+
+
+def train_path():
+    """Main path 4 (phase 7): the L training step at bs 8, 640 px, bf16
+    autocast, accumulation 2, for TRAIN_STEPS micro-steps on a fixed batch,
+    then the non-finite skip; returns the launch counts, the step and batch."""
+    model = build_model(model_config("l"), device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    opt = make_optimizer(model, grad_accum_steps=TRAIN_ACCUM)
+    step = make_train_step(model, opt, 17)
+    batch = synthetic_train_batch(TRAIN_BATCH, 640, 17, 60, "cuda", seed=SEED)
+    labels = label_parameters(model)
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items()}
+    norms = {n: m for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+    stats0 = {n: (m.running_mean.clone(), m.running_var.clone()) for n, m in norms.items()}
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        m = step(batch)
+        loss = m["loss_total"].item()
+        print(f"[7] L train micro-step {i} (bs {TRAIN_BATCH}, 640 px, bf16, accumulation "
+              f"{TRAIN_ACCUM}): loss {loss:.4f}, optimiser steps {opt.updates}")
+        if not (m["finite"] and np.isfinite(loss)):
+            fail(f"L train micro-step {i}: non-finite loss {loss}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[7] {TRAIN_STEPS} micro-steps in {time.perf_counter() - t0:.2f} s (host clock, "
+          f"first calls included); kernel launches {counts}")
+    want = {name: (6 * TRAIN_STEPS if name == "msda_fwd" else 0) for name in KERNELS}
+    if counts != want:
+        fail(f"the training path launched {counts}, expected {want} (6 a micro-step)")
+    # every trainable parameter got a gradient (it has AdamW state). One whose
+    # gradient is 0 up to rounding (a norm's scale right before a depthwise
+    # conv and a batch-statistics norm, which removes it) takes steps of
+    # lr * g / eps, which round away; any other must have moved
+    trainable = [n for n in named if labels[n] != "frozen"]
+    no_state = [n for n in trainable if named[n] not in opt.adamw.state]
+    if no_state:
+        fail(f"trainable parameters without a gradient: {no_state[:3]}")
+    still = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
+    bias2 = 1 - 0.999 ** opt.updates
+    tiny = [n for n in still
+            if (opt.adamw.state[named[n]]["exp_avg_sq"] / bias2).sqrt().max().item() < 1e-6]
+    if len(still) > len(tiny):
+        fail(f"trainable parameters did not move: {sorted(set(still) - set(tiny))[:3]}")
+    frozen_moved = [n for n, p in named.items() if labels[n] == "frozen"
+                    and not torch.equal(p.detach(), before[n])]
+    if frozen_moved:
+        fail(f"frozen parameters moved: {frozen_moved[:3]}")
+    bb_moved = [n for n, m in norms.items() if n.startswith("backbone.") and not (
+        torch.equal(m.running_mean, stats0[n][0]) and torch.equal(m.running_var, stats0[n][1]))]
+    enc_still = [n for n, m in norms.items() if n.startswith("encoder.") and (
+        torch.equal(m.running_mean, stats0[n][0]) or torch.equal(m.running_var, stats0[n][1]))]
+    if bb_moved or enc_still:
+        fail(f"BatchNorm statistics: backbone moved {bb_moved[:3]}, encoder still {enc_still[:3]}")
+    if not step.ema.updates == opt.updates == TRAIN_STEPS // TRAIN_ACCUM:
+        fail(f"{opt.updates} optimiser steps and {step.ema.updates} EMA updates in "
+             f"{TRAIN_STEPS} micro-steps of accumulation {TRAIN_ACCUM}")
+    n_bb = sum(n.startswith("backbone.") for n in norms)
+    print(f"[7] training path: {sum(labels[n] != 'frozen' for n in named) - len(still)} of "
+          f"{sum(labels[n] != 'frozen' for n in named)} trainable parameters moved, the other "
+          f"{len(still)} only gradients below 1e-6 (steps that round away) {tiny[:4]}; "
+          f"{sum(labels[n] == 'frozen' for n in named)} frozen ones did not; {n_bb} backbone BatchNorms untouched, {len(norms) - n_bb} encoder ones "
+          f"moved; {opt.updates} optimiser steps, {step.ema.updates} EMA updates")
+    del before
+
+    # the non-finite skip: a NaN image changes nothing
+    bad = dict(batch, images=batch["images"].clone())
+    bad["images"][0, :, 100, 100] = float("nan")
+    snap = ({n: p.detach().clone() for n, p in named.items()},
+            {k: {kk: (vv.clone() if torch.is_tensor(vv) else vv) for kk, vv in v.items()}
+             for k, v in opt.adamw.state.items()},
+            {k: v.clone() for k, v in step.ema.state_dict().items()},
+            (opt.updates, step.ema.updates, step.micro))
+    m = step(bad)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(p.detach(), snap[0][n]) for n, p in named.items())
+            and all(torch.equal(vv, snap[1][k][kk]) if torch.is_tensor(vv) else vv == snap[1][k][kk]
+                    for k, v in opt.adamw.state.items() for kk, vv in v.items())
+            and all(torch.equal(v, snap[2][k]) for k, v in step.ema.state_dict().items())
+            and (opt.updates, step.ema.updates, step.micro) == snap[3])
+    if m["finite"] or not same:
+        fail(f"a NaN image: finite {m['finite']}, state unchanged {same}")
+    print(f"[7] a batch with a NaN image: loss {m['loss_total'].item()}, skipped; the "
+          f"parameters, AdamW state and EMA are bit for bit as they were")
+    del snap
+    return counts, step, batch
+
+
+def train_time_split(step, batch, n=TRAIN_ACCUM):
+    """``n`` micro-steps (one optimiser step) timed with CUDA events, then
+    ``n`` more traced after ``n`` under the profiler's warm-up: the device's busy time by kernel family, its idle
+    share against the untraced time, the device time of the kernels inside
+    kernel #1's backward range, and the host's time in each phase of the step."""
+    from torch.autograd import DeviceType
+
+    wall = cuda_time_ms(lambda: step(batch), iters=n, warmup=n) * n
+    prof = traced(lambda: step(batch), n)
+    annotation = lambda e: getattr(e, "is_user_annotation", False)
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not annotation(e)]
+    families = {"conv": ("conv", "fprop", "dgrad", "wgrad", "implicit", "xmma"),
+                "layout": ("nchwtonhwc", "nhwctonchw"),
+                "matmul": ("gemm", "nvjet", "cutlass", "cublas"),
+                "batch_norm": ("batch_norm", "bn_"),
+                "msda kernel #1": ("msda_fwd",),
+                "gather/scatter/index": ("gather", "scatter", "index"),
+                "optimizer/EMA (foreach)": ("multi_tensor", "foreach")}
+    split = {}
+    for name, ms, _ in kernels:
+        fam = next((f for f, keys in families.items() if any(k in name.lower() for k in keys)),
+                   "other")
+        split[fam] = split.get(fam, 0.0) + ms
+    busy = sum(split.values())
+    # the kernels inside the backward range's span on the device (one stream)
+    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in gpu
+             if annotation(e) and e.name == BACKWARD_RANGE]
+    bwd_ms = sum(e.time_range.elapsed_us() for e in gpu if not annotation(e) and any(
+        a <= e.time_range.start < b for a, b in spans)) / 1e3
+    host = {e.key: e.cpu_time_total / 1e3 for e in events
+            if e.device_type == DeviceType.CPU and e.key in PHASES}
+    if busy > wall:
+        fail(f"L train step: the traced kernels' device time {busy:.3f} ms exceeds the "
+             f"step's {wall:.3f} ms between CUDA events: kernels miscounted")
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "launches": sum(k[2] for k in kernels), "families_ms": split,
+            "msda_backward_ms": bwd_ms, "msda_backward_calls": len(spans),
+            "top_kernels": sorted(kernels, key=lambda k: -k[1])[:8], "host_ms_by_phase": host}
+
+
+def check_train_op(g):
+    """Phase 3: kernel #1's op (the custom op that main path 4 calls) at the
+    L train shapes against the plain version on the same inputs, float32 and
+    bf16 values: its output, and the value, location and weight gradients
+    of one upstream gradient, each within phase 3's limit of its max|ref|.
+    Under deterministic algorithms: the value gradient is a scatter of
+    atomic adds, and in bf16 their order alone moves it by 2 units in the
+    last place (1.6e-2 at 1.5), past the limit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _check_train_op(g)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _check_train_op(g):
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        value, levels, loc, aw = msda_inputs(g, dtype, **TRAIN_SHAPES)
+        ins = [t.requires_grad_() for t in (value, loc, aw)]
+        grad = torch.randn(value.shape[0], loc.shape[1], value.shape[2], device="cuda",
+                           generator=g).to(dtype)
+        results = {}
+        for which, fn in (("op", ms_deform_attn_fast_flat), ("plain", ms_deform_attn_core)):
+            out = fn(ins[0], levels, ins[1], ins[2])
+            results[which] = (out.detach(),) + torch.autograd.grad(out, ins, grad)
+        torch.cuda.synchronize()
+        for what, got, want in zip(("output", "value grad", "location grad", "weight grad"),
+                                   results["op"], results["plain"]):
+            got, want = got.float(), want.float()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            print(f"[3] msda_fwd op   train  {str(dtype):14s} {what:13s} max|err| {err:.3e} "
+                  f"max|ref| {scale:.3e} (limit {rel:g} of max|ref|)")
+            if not (err <= rel * scale and torch.isfinite(got).all()):
+                fail(f"kernel #1's op disagrees with the plain version on its {what} at the "
+                     f"L train shapes, {dtype}")
+        del ins, results
+
+
+def msda_backward_alone(g):
+    """Kernel #1's op at the L train shapes (bs 8, 124 x 18 queries, bf16
+    values): forward alone, and forward + its plain-version backward, CUDA
+    events over 10 calls; returns (forward ms, backward ms)."""
+    value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **TRAIN_SHAPES)
+    ins = [t.requires_grad_() for t in (value, loc, aw)]
+    grad = torch.randn(value.shape[0], loc.shape[1], value.shape[2], device="cuda",
+                       generator=g).to(value.dtype)
+
+    def fwd_bwd():
+        out = ms_deform_attn_fast_flat(ins[0], levels, ins[1], ins[2])
+        torch.autograd.grad(out, ins, grad)
+
+    with torch.no_grad():
+        f_ms = cuda_time_ms(lambda: ms_deform_attn_fast_flat(value, levels, loc, aw), iters=10)
+    fb_ms = cuda_time_ms(fwd_bwd, iters=10)
+    return f_ms, fb_ms - f_ms
+
+
 def main():
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -599,10 +900,12 @@ def main():
     # ---- 3. kernels vs plain
     g = torch.Generator(device="cuda").manual_seed(SEED)
     max_abs_err = check_kernels(g)
+    check_train_op(g)
 
     # ---- 4, 5. the L model: kernels vs plain MSDA, deploy vs train form
     gen = torch.Generator().manual_seed(SEED)
     train = check_l_model(gen)
+    check_train_backends()
 
     # ---- 6. main path 1: serve
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -612,7 +915,11 @@ def main():
     # ---- 7. main paths 2 and 3: the tools, the MSDA variant tools
     sizes, bench_ms, eager, exported, counts_tools = tools(card)
     v2, ablate, counts_variants = variant_tools(card)
-    total = {k: counts_serve[k] + counts_tools[k] + counts_variants[k] for k in KERNELS}
+
+    # ---- 7. main path 4: training
+    counts_train, tstep, tbatch = train_path()
+    total = {k: counts_serve[k] + counts_tools[k] + counts_variants[k] + counts_train[k]
+             for k in KERNELS}
 
     # ---- 8. timing
     xb = torch.rand(32, 3, 640, 640, generator=gen).cuda()
@@ -772,6 +1079,48 @@ def main():
           f"{ys_err:.3e} of max|ref| against the plain version (its bf16 grid); msda_colsin "
           f"{rows['msda_colsin'][0]:.4f} ms; on {card}")
 
+    # the L training step: its trace, kernel #1's backward alone, the
+    # matcher, then tools/benchmark.py's timing
+    split = train_time_split(tstep, tbatch)
+    print(f"[8] L train, {TRAIN_ACCUM} micro-steps (bs {TRAIN_BATCH}, 640 px, bf16, one optimiser "
+          f"step): {split['wall_ms']:.3f} ms by CUDA events; traced: device busy "
+          f"{split['busy_ms']:.3f} ms over {split['launches']} kernel launches (idle share "
+          f"{split['idle_share']:.3f}); kernel #1's plain-version backward "
+          f"({split['msda_backward_calls']} calls, profiler range {BACKWARD_RANGE}) "
+          f"{split['msda_backward_ms']:.3f} ms = "
+          f"{100 * split['msda_backward_ms'] / max(split['busy_ms'], 1e-9):.1f}% of busy; by "
+          f"family: " + ", ".join(f"{f} {ms:.3f} ms ({100 * ms / split['busy_ms']:.1f}%)"
+                                  for f, ms in sorted(split["families_ms"].items(),
+                                                      key=lambda kv: -kv[1])) + f"; on {card}")
+    for name, ms, count in split["top_kernels"]:
+        print(f"[8]   {ms:8.3f} ms  x{count:<5d} {name[:90]}")
+    print(f"[8] the host's time in the traced micro-steps by phase: " + ", ".join(
+        f"{name} {ms:.3f} ms" for name, ms in split["host_ms_by_phase"].items()) + f"; on {card}")
+    bwd_alone = msda_backward_alone(g)
+    print(f"[8] kernel #1's op at the L train shapes (bs {TRAIN_BATCH}, 124 x 18 queries, bf16): "
+          f"forward {bwd_alone[0]:.4f} ms, its plain-version backward {bwd_alone[1]:.4f} ms a "
+          f"call (x6 = {6 * bwd_alone[1]:.3f} ms a micro-step); on {card}")
+    logits, kpts, _ = branch_assignments(tstep.model, tbatch)
+    matcher_ms = {b: cuda_time_ms(lambda b=b: hungarian_match(logits, kpts, tbatch["targets"], 17,
+                                                              backend=b), iters=5)
+                  for b in ("auction", "scipy")}
+    print(f"[8] matcher, {logits.shape[0]} branches x bs {TRAIN_BATCH} x 60 queries x 8 poses: "
+          f"auction {matcher_ms['auction']:.3f} ms, scipy {matcher_ms['scipy']:.3f} ms a call; "
+          f"on {card}")
+    del tstep, tbatch, logits, kpts
+    torch.cuda.empty_cache()
+    bench_train = benchmark.bench_train_step("l", TRAIN_BATCH, 640, warmup=3, iters=10,
+                                             grad_accum_steps=TRAIN_ACCUM)
+    print(f"[8] bench_train_step('l'), bs {TRAIN_BATCH}, 640 px, bf16, accumulation "
+          f"{TRAIN_ACCUM}: {bench_train['step_ms']:.3f} ms a micro-step, "
+          f"{bench_train['opt_step_ms']:.3f} ms an optimiser step, "
+          f"{bench_train['images_per_sec']} img/s, peak memory "
+          f"{bench_train['peak_mem_bytes'] / 2**30:.2f} GiB, launches "
+          f"{bench_train['launches']} over {bench_train['iters']} micro-steps; on {card}")
+    if not bench_train["finite"] or bench_train["launches"]["msda_fwd"] != 6 * bench_train["iters"]:
+        fail(f"bench_train_step: finite {bench_train['finite']}, launches "
+             f"{bench_train['launches']}")
+
     # ---- 9. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
@@ -799,7 +1148,11 @@ def main():
                                             for k, r in modes.items()},
                       "msda_ablate_no_cexp_passes_ms": passes,
                       "kernel_device_ms": device_ms,
-                      "msda_tpose_by_groups": by_groups}))
+                      "msda_tpose_by_groups": by_groups,
+                      "train": {"bench": bench_train, "trace": split,
+                                "msda_op_train_shapes_ms": {"forward": bwd_alone[0],
+                                                            "backward": bwd_alone[1]},
+                                "matcher_ms": matcher_ms}}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

@@ -10,12 +10,15 @@ DETRPose ``state_dict`` keys, so zoo checkpoints load with
                ``ops/cuda``, the wrappers of the hand-written CUDA kernels whose
                sources live in ``csrc/``.
 - ``models``   ``nn.Module``s: HGNetv2 backbone, HybridEncoder, deformable pose
-               decoder, post-process (eval path).
+               decoder, post-process (eval and train paths).
+- ``train``    CDN denoising queries, the matcher, the criterion, the
+               optimiser and EMA; ``parallel`` the training step.
 - ``configs``  the N/S/M/L/X presets and ``build_model`` (train or deploy form).
 - ``utils``    weight carry from the JAX variables and zoo ``.pth`` loading,
                deploy re-parameterisation, CUDA-event timing.
 - ``tools``    ``infer.build_pipeline``, the serving entry point; the
-               ``benchmark``, ``pallas_bench`` and ``export`` command lines.
+               ``benchmark`` (forward and training step), ``pallas_bench`` and
+               ``export`` command lines.
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 """

@@ -67,6 +67,9 @@ class ModelConfig:
     energy_step_size: float = 0.1
     grad_energy: bool = False
     energy_decrease_weight: float = 0.0
+    # recompute each backbone stage and decoder layer in the backward pass of
+    # training (torch.utils.checkpoint; the JAX knob, presets.py:74)
+    remat: bool = False
     dtype: torch.dtype = torch.float32
 
 
@@ -119,7 +122,8 @@ def build_model(cfg: ModelConfig, deploy: bool = False,
                 device: torch.device | str = "cuda",
                 generator: Optional[torch.Generator] = None) -> DETRPose:
     """Build the model in eval mode on ``device``, in ``cfg.dtype``, with weights
-    drawn from ``generator`` (a CPU generator seeded with 0 if None).
+    drawn from ``generator`` (a CPU generator seeded with 0 if None); the
+    caller calls ``.train()`` for the training forward.
 
     ``deploy=True`` builds the encoder's re-parameterised form, which takes
     the weights ``utils/deploy.py::fuse_for_deploy`` makes from the train
@@ -132,7 +136,7 @@ def build_model(cfg: ModelConfig, deploy: bool = False,
     if cfg.backbone_name.startswith("resnet"):
         raise NotImplementedError("the ResNet backbone is not ported")
     backbone = HGNetv2(arch=cfg.backbone_name, use_lab=cfg.use_lab,
-                       return_idx=tuple(cfg.return_idx))
+                       return_idx=tuple(cfg.return_idx), remat=cfg.remat)
     encoder = HybridEncoder(
         in_channels=tuple(cfg.in_channels), n_levels=cfg.n_levels, hidden_dim=cfg.hidden_dim,
         dim_feedforward=cfg.enc_dim_feedforward,
@@ -144,7 +148,8 @@ def build_model(cfg: ModelConfig, deploy: bool = False,
         dim_feedforward=cfg.dec_dim_feedforward,
         num_feature_levels=cfg.n_levels, dec_n_points=cfg.dec_n_points,
         num_classes=cfg.num_classes, num_body_points=cfg.num_body_points,
-        reg_max=cfg.reg_max, reg_scale=cfg.reg_scale, msda_backend=cfg.msda_backend)
+        reg_max=cfg.reg_max, reg_scale=cfg.reg_scale, msda_backend=cfg.msda_backend,
+        remat=cfg.remat)
     model = DETRPose(backbone, encoder, transformer)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

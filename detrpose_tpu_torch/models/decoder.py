@@ -1,8 +1,14 @@
-"""Deformable pose decoder, eval path: MSDeformAttn, LQE, decoder layer and stack.
+"""Deformable pose decoder: MSDeformAttn, LQE, decoder layer and stack.
 
-Counterpart of ``detrpose_tpu/models/decoder.py`` (default branch). Reference
-semantics: src/models/detrpose/transformer.py:263-925 and
-ms_deform_attn.py:196-513.
+Counterpart of ``detrpose_tpu/models/decoder.py`` (default branch), eval and
+train paths. Reference semantics: src/models/detrpose/transformer.py:263-925
+and ms_deform_attn.py:196-513.
+
+JAX runs the training layers under ``nn.scan`` (``dec_scan``, stacked
+parameters) and offers ``scan_layers`` / ``scan_unroll`` to trade its compile
+time; those are XLA knobs with no counterpart here. The port keeps one module
+per layer (``utils/convert.py`` unstacks the scanned leaves) and runs them in
+a Python loop.
 
 The reference adds the keypoint query position embedding *in place*
 (transformer.py:359-370), so the positional term persists into the attention
@@ -19,6 +25,9 @@ explicit add on tokens ``1:``, twice per layer.
                  JAX package's XLA path, chosen by name).
 Each kernel's wrapper launches it on a CUDA tensor and runs its plain version
 on a CPU tensor. Any other name raises, where JAX would take the gather path.
+Kernel #1's op has a gradient (the plain version's, as JAX's ``_fast_bwd``);
+kernel #2's has none, as JAX's ``ms_deform_attn_pallas`` has none, so
+"pallas" raises where a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda.msda import ms_deform_attn_fast_flat
 from ..ops.cuda.msda_perquery import ms_deform_attn_pallas_flat
@@ -106,6 +116,11 @@ class MSDeformAttn(nn.Module):
         if self.msda_backend == "gather":
             return ms_deform_attn_core(value, spatial_shapes, loc, aw)
         if self.msda_backend == "pallas":
+            if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
+                                            or aw.requires_grad):
+                raise RuntimeError(
+                    "msda_backend='pallas' (kernel #2) has no gradient, as the JAX "
+                    "kernel has none; train with msda_backend='auto' or 'gather'")
             return ms_deform_attn_pallas_flat(value, spatial_shapes, loc, aw)
         return ms_deform_attn_fast_flat(value, spatial_shapes, loc, aw)
 
@@ -187,23 +202,33 @@ class DeformableDecoderLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """Decoder stack with FDR iterative keypoint refinement, eval path.
+    """Decoder stack with FDR iterative keypoint refinement.
 
-    Reference: transformer.py:446-925. One module per layer. The per-layer
-    prediction heads (``pose_embed``, ``class_embed``, ``lqe_embed``) and the
-    layer-0 ``pre_pose_embed`` belong to the enclosing Transformer, as in the
-    reference's state_dict, and are passed in; the class and LQE heads run on
-    the last layer only (transformer.py:726, 907-908).
+    Reference: transformer.py:446-925; JAX ``_DecoderStep`` and
+    ``TransformerDecoder`` (decoder.py:434-769). One module per layer. The
+    per-layer prediction heads (``pose_embed``, ``class_embed``,
+    ``lqe_embed``) and the layer-0 ``pre_pose_embed`` belong to the enclosing
+    Transformer, as in the reference's state_dict, and are passed in.
+
+    At eval the class and LQE heads run on the last layer only
+    (transformer.py:726, 907-908). In training they run on every layer, the
+    per-layer outputs are stacked for deep supervision, the layer-0 pose head
+    gives ``pre_poses`` and the class head ``pre_scores``, the initial
+    reference is detached, and so are the new reference points and
+    ``output_pose`` between layers (decoder.py:519-520, 546-548). ``remat``
+    recomputes each layer in the backward pass of training
+    (``torch.utils.checkpoint``).
     """
 
     def __init__(self, num_layers: int = 6, hidden_dim: int = 256,
                  num_body_points: int = 17, d_ffn: int = 1024,
                  activation: str = "relu", n_levels: int = 3, n_heads: int = 8,
                  n_points: int = 4, reg_scale: float = 4.0,
-                 msda_backend: str = "auto"):
+                 msda_backend: str = "auto", remat: bool = False):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.reg_scale = reg_scale
+        self.remat = remat
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(hidden_dim, d_ffn, activation, n_levels,
                                    n_heads, n_points, msda_backend)
@@ -214,29 +239,42 @@ class TransformerDecoder(nn.Module):
                 value: torch.Tensor, spatial_shapes: SpatialShapes,
                 feat_lqe: torch.Tensor, project: torch.Tensor,
                 pose_embed: Sequence[nn.Module], class_embed: Sequence[nn.Module],
-                lqe_embed: Sequence[nn.Module],
-                pre_pose_embed: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+                lqe_embed: Sequence[nn.Module], pre_pose_embed: nn.Module,
+                attn_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
         """tgt (B, nq, 1+K, d); refpoints_sigmoid (B, nq, 1+K, 2); value
-        (B, S, d); feat_lqe (B, d, H8, W8) -> (keypoints (B, nq, K, 2) float32,
-        logits (B, nq, num_classes))."""
+        (B, S, d); feat_lqe (B, d, H8, W8); attn_mask (nq, nq) bool, True =
+        blocked.
+
+        Eval: (keypoints (B, nq, K, 2) float32, logits (B, nq, num_classes)).
+        Training: (poses (L, B, nq, K, 2) float32, logits (L, B, nq, C),
+        corners (L, B, nq, K, 2*(reg_max+1)), ref_pose_initial (B, nq, K, 2),
+        pre_poses (B, nq, K, 2), pre_scores (B, nq, C)).
+        """
+        train = self.training
         out = tgt
         # keypoint positions are carried in float32 whatever the working dtype
         refpoint_pose = refpoints_sigmoid.float()
         output_pose_detach = torch.zeros_like(tgt[:, :, 1:])
         pred_corners = None
-        ref_pose_initial = None
+        ref_pose_initial = pre_poses = pre_scores = None
+        poses, logits_all, corners_all = [], [], []
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             ref_only_pose = refpoint_pose[:, :, 1:]                    # (B, nq, K, 2)
             sine = sine_embedding_2d(ref_only_pose, self.hidden_dim).to(out.dtype)
             query_pos = self.half_pose_ref_point_head(sine)
-            out = layer(out, query_pos, refpoint_pose, value, spatial_shapes)
+            if self.remat and train and torch.is_grad_enabled():
+                out = checkpoint(layer, out, query_pos, refpoint_pose, value,
+                                 spatial_shapes, attn_mask, use_reentrant=False)
+            else:
+                out = layer(out, query_pos, refpoint_pose, value, spatial_shapes,
+                            attn_mask)
             output_pose = out[:, :, 1:]
 
             if i == 0:
                 pre = pre_pose_embed(output_pose)
-                ref_pose_initial = torch.sigmoid(
-                    pre + inverse_sigmoid(ref_only_pose)).float()
+                pre_poses = torch.sigmoid(pre + inverse_sigmoid(ref_only_pose)).float()
+                ref_pose_initial = pre_poses.detach() if train else pre_poses
 
             corners = pose_embed[i](output_pose + output_pose_detach)
             if pred_corners is not None:
@@ -245,8 +283,20 @@ class TransformerDecoder(nn.Module):
                                  self.reg_scale)                      # (B, nq, K, 2)
             refpoint_pose = torch.cat([kpts.mean(dim=2, keepdim=True), kpts], dim=2)
             output_pose_detach = output_pose
+            if train:
+                refpoint_pose = refpoint_pose.detach()
+                output_pose_detach = output_pose.detach()
             pred_corners = corners
-            if i == last:
+            if train or i == last:
                 score = class_embed[i](out[:, :, 0])
                 logits = lqe_embed[i](score, kpts, feat_lqe)
-        return kpts, logits
+                if i == 0:
+                    pre_scores = score
+            if train:
+                poses.append(kpts)
+                logits_all.append(logits)
+                corners_all.append(corners)
+        if not train:
+            return kpts, logits
+        return (torch.stack(poses), torch.stack(logits_all), torch.stack(corners_all),
+                ref_pose_initial, pre_poses, pre_scores)

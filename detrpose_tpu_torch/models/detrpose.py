@@ -1,12 +1,14 @@
 """DETRPose top module: backbone -> hybrid encoder -> pose transformer.
 
 Counterpart of ``detrpose_tpu/models/detrpose.py``; reference:
-src/models/detrpose/detrpose.py:15-81. Only the eval forward is ported.
+src/models/detrpose/detrpose.py:15-81. ``model.eval()`` gives the serving
+forward, ``model.train()`` the training forward with its deep-supervision and
+denoising outputs (the backbone's norms stay frozen, ``models/hgnetv2.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -50,8 +52,11 @@ class DETRPose(nn.Module):
         self.encoder = encoder
         self.transformer = transformer
 
-    def forward(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """samples (B, 3, H, W) in [0, 1] -> {pred_logits, pred_keypoints}."""
-        if self.training:
-            raise NotImplementedError("only the eval forward is ported; call .eval()")
-        return self.transformer(self.encoder(self.backbone(samples)))
+    def forward(self, samples: torch.Tensor,
+                dn: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """samples (B, 3, H, W) in [0, 1]; ``dn`` the denoising batch of
+        ``train/cdn.py::cdn_to_device``, read in training only.
+
+        Eval -> {pred_logits, pred_keypoints}; training -> the train dict of
+        ``models/transformer.py::Transformer.forward``."""
+        return self.transformer(self.encoder(self.backbone(samples)), dn)

@@ -3,7 +3,10 @@
 Counterpart of ``detrpose_tpu/models/hgnetv2.py``. Reference semantics:
 src/nn/backbone/hgnetv2.py (StemBlock :169-220, HG_Block :243-329, HG_Stage
 :332-383, arch table :398-476, forward :586-593). Every BatchNorm runs on its
-running statistics (the reference freezes the backbone's norms).
+running statistics, in training too (``freeze_norm``, the reference's
+FrozenBatchNorm2d; JAX ``models/hgnetv2.py:178-181``): ``train()`` leaves the
+backbone's norms in inference mode, and ``train/optim.py`` leaves their affine
+parameters alone.
 """
 from __future__ import annotations
 
@@ -12,8 +15,9 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .layers import ConvBNAct, EseModule, LightConvBNAct
+from .layers import BatchNorm, ConvBNAct, EseModule, LightConvBNAct
 
 # name -> (stem_channels, [[in, mid, out, nblocks, downsample, light, k, nlayers]] per stage)
 ARCH_CONFIGS = {
@@ -143,24 +147,40 @@ class HGStage(nn.Module):
 
 class HGNetv2(nn.Module):
     """Multi-scale CNN backbone; returns the features of the stages in
-    ``return_idx`` (strides 4/8/16/32). Reference: hgnetv2.py:386-593."""
+    ``return_idx`` (strides 4/8/16/32). Reference: hgnetv2.py:386-593.
+
+    ``remat`` recomputes each stage in the backward pass of training
+    (``torch.utils.checkpoint``; JAX ``nn.remat`` of ``HGStage``): memory for
+    operations. Its norms are frozen, so a recomputed stage moves no statistics.
+    """
 
     def __init__(self, arch: str = "B4", use_lab: bool = False,
-                 return_idx: Sequence[int] = (1, 2, 3)):
+                 return_idx: Sequence[int] = (1, 2, 3), remat: bool = False):
         super().__init__()
         stem_channels, stage_config = ARCH_CONFIGS[arch]
         self.return_idx = tuple(return_idx)
+        self.remat = remat
         self.stem = StemBlock(*stem_channels, use_lab=use_lab)
         self.stages = nn.ModuleList(
             HGStage(cin, cmid, cout, nblocks, nlayers, downsample=down,
                     light_block=light, kernel_size=k, use_lab=use_lab)
             for cin, cmid, cout, nblocks, down, light, k, nlayers in stage_config)
 
+    def train(self, mode: bool = True) -> "HGNetv2":
+        super().train(mode)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.eval()
+        return self
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.stem(x)
         outs = []
         for i, stage in enumerate(self.stages):
-            x = stage(x)
+            if self.remat and self.training and torch.is_grad_enabled():
+                x = checkpoint(stage, x, use_reentrant=False)
+            else:
+                x = stage(x)
             if i in self.return_idx:
                 outs.append(x)
         return outs

@@ -5,7 +5,9 @@ src/models/detrpose/hybrid_encoder.py:324-507 — per-level 1x1 conv + BN
 projection, a post-norm transformer encoder over the flattened stride-32
 tokens with a 2D sine position embedding, then the top-down FPN (lateral 1x1,
 nearest 2x upsample, RepNCSPELAN4) and the bottom-up PAN (SCDown,
-RepNCSPELAN4). Feature maps are NCHW. ``deploy=True`` builds the FPN/PAN's
+RepNCSPELAN4). Feature maps are NCHW. In training (``self.training``) every
+norm here normalises with the batch statistics and moves its running ones
+(``models/layers.py::BatchNorm``). ``deploy=True`` builds the FPN/PAN's
 re-parameterised form (hybrid_encoder.py:68, 118-129 of the JAX package),
 whose weights ``utils/deploy.py::fuse_for_deploy`` makes.
 """

@@ -1,4 +1,4 @@
-"""Shared NN building blocks (NCHW inside, eval path).
+"""Shared NN building blocks (NCHW inside; eval and train paths).
 
 Counterpart of ``detrpose_tpu/models/layers.py``; the semantics follow the
 reference blocks cited per class. Module and parameter names are those of the
@@ -34,12 +34,21 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d at inference: running statistics, eps 1e-5.
+    """BatchNorm2d, eps 1e-5, momentum 0.1 (JAX ``models/layers.py:45-61``).
 
     Holds the four tensors of the reference's BatchNorm2d / FrozenBatchNorm2d
     (``weight``, ``bias``, ``running_mean``, ``running_var``) and no
-    ``num_batches_tracked``, which inference never reads.
+    ``num_batches_tracked``, which nothing reads.
+
+    In training it normalises with the batch statistics and moves the running
+    statistics by 0.1 towards them, as Flax's ``nn.BatchNorm`` does: the
+    running variance takes the *biased* batch variance. ``F.batch_norm``
+    folds in the unbiased one, so the update is corrected after the call:
+    with ``rv`` the variance before and ``rv'`` after it, and ``n`` values a
+    channel, the biased update is ``((1 - 0.1) rv + (n-1) rv') / n``.
     """
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -50,8 +59,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=self.eps)
+        # the call moves a copy (autograd keeps it); the buffer takes the
+        # corrected update
+        moved = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, moved, self.weight, self.bias,
+                         training=True, momentum=self.momentum, eps=self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.mul_(1.0 - self.momentum).add_(moved, alpha=n - 1).div_(n)
+        return y
 
 
 class LearnableAffineBlock(nn.Module):

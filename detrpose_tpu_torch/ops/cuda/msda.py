@@ -19,8 +19,9 @@ so that ``torch.export`` keeps the kernel call in the graph (it cannot trace
 into a ``ctypes`` call) and an exported program launches the kernel when it
 runs. The op's gradient mirrors the JAX ``custom_vjp``: the forward is the
 kernel, the backward re-derives gradients by autograd through the plain
-version (as ``_fast_bwd`` does through the XLA path). There is no backward
-kernel, because the TPU kernel has none.
+version (as ``_fast_bwd`` does through the XLA path), inside the profiler
+range ``BACKWARD_RANGE`` so a trace can give its share of a training step.
+There is no backward kernel, because the TPU kernel has none.
 
 The module also holds what the other wrappers share: ``bind`` and the level
 table of kernels #1 and #2, and the per-point kernels #3–#5's table of level
@@ -358,6 +359,9 @@ def _setup_context(ctx, inputs, output):
     ctx.level_hw = level_hw
 
 
+BACKWARD_RANGE = "msda_fwd_backward"   # the profiler range of the op's backward
+
+
 def _backward(ctx, grad_out):
     value, loc, aw = ctx.saved_tensors
     need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
@@ -365,7 +369,7 @@ def _backward(ctx, grad_out):
     wanted = [t for t in inputs if t.requires_grad]
     grads = iter(())
     if wanted:
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
             out = ms_deform_attn_core(inputs[0], pairs(ctx.level_hw), inputs[1], inputs[2])
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
     gv, gl, ga = (next(grads) if t.requires_grad else None for t in inputs)

@@ -66,8 +66,9 @@ def bilinear_sample_px(v: torch.Tensor, H: int, W: int, ix: torch.Tensor,
                       (x1, y0, (ix - x0) * (y1 - iy)),
                       (x1, y1, (ix - x0) * (iy - y0))):
         valid = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)
-        xi = xc.clamp(0, W - 1).long()
-        yi = yc.clamp(0, H - 1).long()
+        # a NaN coordinate reads row 0 (its weight keeps it NaN, as in JAX)
+        xi = xc.nan_to_num(0.0).clamp(0, W - 1).long()
+        yi = yc.nan_to_num(0.0).clamp(0, H - 1).long()
         idx = (yi * W + xi).unsqueeze(-1).expand(-1, -1, dh)
         g = torch.gather(v, 1, idx).float()                       # (N, P, dh)
         sampled = sampled + g * (w * valid)[..., None]

@@ -13,11 +13,15 @@ Counterpart of ``detrpose_tpu/tools/benchmark.py`` (``model_info``,
   timed with CUDA events after a warm-up, with each kernel's launches during
   the timed calls. On the CPU (``device="cpu"``) the host clock times it and
   the result says so.
+* ``bench_train_step``: the training step (``parallel/train_step.py``: bf16
+  autocast forward, criterion, backward, AdamW, EMA) on a fixed synthetic
+  batch with G = 8 poses an image and one CDN batch, timed the same way, with
+  the peak device memory.
 
-The real-image leg (``bench_data``, which needs PIL) and the training-step
-leg (``bench_train_step``) are not ported yet.
+The real-image leg (``bench_data``, which needs PIL) is not ported yet.
 
   python -m detrpose_tpu_torch.tools.benchmark --sizes n s m l x --batch 1 32
+  python -m detrpose_tpu_torch.tools.benchmark --train --sizes l --batch 8
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import build_model, model_config
 from ..models import postprocess
 from ..ops.cuda import KERNELS
+from ..parallel import make_train_step
+from ..train.cdn import build_cdn, cdn_to_device
+from ..train.optim import make_optimizer
 from ..utils.device import resolve_device
 from ..utils.measure import cuda_time_ms
 
@@ -100,6 +107,69 @@ def bench_size(size: str, batch: int, res: int = 640, bf16: bool = True,
             "launches": {k: after[k] - before[k] for k in after}}
 
 
+def synthetic_train_batch(batch: int, res: int, num_body_points: int, num_queries: int,
+                          device: torch.device, G: int = 8, seed: int = 0) -> dict:
+    """A fixed training batch: ``batch`` random images at ``res`` px, G poses
+    an image with keypoints in [0.2, 0.8], all visible, area 0.04, and the CDN
+    batch built from them (JAX ``bench_train_step``'s targets)."""
+    K = num_body_points
+    rng = np.random.default_rng(seed)
+    kxy = rng.uniform(0.2, 0.8, (batch, G, K, 2)).astype(np.float32)
+    targets = {
+        "labels": np.zeros((batch, G), np.int32),
+        "boxes": np.concatenate([kxy.mean(2), np.full((batch, G, 2), 0.2, np.float32)], -1),
+        "keypoints": np.concatenate(
+            [kxy.reshape(batch, G, 2 * K), np.ones((batch, G, K), np.float32)], -1),
+        "area": np.full((batch, G), 0.04, np.float32),
+        "valid": np.ones((batch, G), bool),
+    }
+    dn = build_cdn(targets, num_queries, K, (res, res), rng)
+    images = rng.uniform(0, 1, (batch, 3, res, res)).astype(np.float32)
+    return {"images": torch.from_numpy(images).to(device),
+            "targets": {k: torch.from_numpy(v).to(device) for k, v in targets.items()},
+            "dn": cdn_to_device(dn, device)}
+
+
+def bench_train_step(size: str, batch: int = 8, res: int = 640, num_body_points: int = 17,
+                     warmup: int = 3, iters: int = 10, grad_accum_steps: int = 1,
+                     device: torch.device | str = "cuda", remat: bool = False) -> dict:
+    """The full training step (bf16 autocast forward, criterion, backward,
+    clip, AdamW, EMA) on a fixed synthetic batch: ms per micro-step and per
+    optimiser step, images/s, the peak device memory, and each kernel's
+    launches over ``iters`` timed micro-steps after ``warmup`` untimed ones.
+    On the CPU (``device="cpu"``) the host clock times it, in float32."""
+    dev = resolve_device(device)
+    cfg = model_config(size, num_body_points=num_body_points, remat=remat)
+    model = build_model(cfg, device=dev)
+    opt = make_optimizer(model, grad_accum_steps=grad_accum_steps)
+    step = make_train_step(model, opt, num_body_points, device=dev,
+                           compute_dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32)
+    data = synthetic_train_batch(batch, res, num_body_points, cfg.num_queries, dev)
+    for _ in range(max(1, warmup)):
+        m = step(data)
+    before = launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, basis = cuda_time_ms(lambda: step(data), iters, warmup=0), "cuda_events"
+        peak = torch.cuda.max_memory_allocated(dev)
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            m = step(data)
+        ms, basis, peak = (time.perf_counter() - t0) / iters * 1e3, "cpu_host_clock", None
+    after = launch_counts()
+    m = step(data)
+    k = opt.grad_accum_steps
+    return {"size": size, "batch": batch, "res": res, "mode": "train",
+            "grad_accum_steps": k, "remat": remat,
+            "step_ms": round(ms, 3), "opt_step_ms": round(k * ms, 3),
+            "images_per_sec": round(batch * 1e3 / ms, 1), "peak_mem_bytes": peak,
+            "basis": basis, "iters": iters, "device": _device_name(dev),
+            "finite": bool(m["finite"]), "loss": round(float(m["loss_total"]), 4),
+            "launches": {name: after[name] - before[name] for name in after}}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sizes", nargs="+", default=list(SIZES), choices=SIZES)
@@ -107,8 +177,18 @@ def main(argv=None):
     p.add_argument("--res", type=int, default=640)
     p.add_argument("--info-only", action="store_true")
     p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--train", action="store_true",
+                   help="time the training step instead of the forward")
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--remat", action="store_true")
     args = p.parse_args(argv)
     for size in args.sizes:
+        if args.train:
+            for b in args.batch:
+                print(json.dumps(bench_train_step(size, b, args.res, iters=args.iters,
+                                                  grad_accum_steps=args.grad_accum,
+                                                  remat=args.remat)), flush=True)
+            continue
         print(json.dumps(model_info(size, res=args.res)), flush=True)
         if args.info_only:
             continue

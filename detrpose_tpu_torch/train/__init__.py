@@ -1,0 +1,1 @@
+"""Training: CDN queries, the matcher, the criterion, the optimiser and EMA."""

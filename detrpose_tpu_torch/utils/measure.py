@@ -36,17 +36,29 @@ def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float
 def kernel_times(fn: Callable[[], object], n: int = 1) -> List[Tuple[str, float, int]]:
     """[(kernel, device ms per call, launches per call)] of the kernels
     ``fn()`` launches, from torch.profiler's device events over ``n`` calls
-    after one untraced call; [] if it saw none."""
+    after ``n`` calls under a profiler warm-up step (the first kernels of a
+    session can go unrecorded); [] if it saw none."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats its kernels'
+    prof = traced(fn, n)
+    # device-side events only: a CPU op's self device time repeats its kernels',
+    # and a record_function range's device span covers its kernels and gaps
     return [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def traced(fn: Callable[[], object], n: int = 1):
+    """A torch.profiler session (CPU and CUDA) whose recorded step is ``n``
+    calls of ``fn()``, after a warm-up step of ``n`` untraced calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof

@@ -11,9 +11,15 @@ values within 1% of max|ref| (one bf16 rounding of the output); the
 per-point kernels #3–#5 within 1e-5 of max|ref| (bf16 values, float32
 output, the same sums in another order).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
+
+# deterministic cuBLAS for the training tests' deterministic mode; read when
+# cuBLAS starts, so set before any test runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from detrpose_tpu_torch.models.decoder import MSDeformAttn
 from detrpose_tpu_torch.ops.cuda.msda import ms_deform_attn_fast_flat, msda_forward
@@ -379,3 +385,130 @@ def test_tpose_past_one_channel_a_block(cuda):
     assert not MSDATpose.plan(tposed, shapes, 32, pts[0][0].shape[-1]).staged
     got = msda_tpose(pts, tposed, shapes)
     assert _rel_err(got, msda_tpose_plain(pts, tposed, shapes)) <= 1e-5
+
+
+# ------------------------------------------------------------------ training
+# The DETRPose-L training micro-batch: (64 CDN slots + 60 queries) x 18 tokens
+L_TRAIN = dict(B=8, Lq=124 * 18, shapes=[(80, 80), (40, 40), (20, 20)])
+
+
+@pytest.mark.gpu
+def test_op_gradient_matches_plain_at_l_train_shapes(cuda):
+    # kernel #1's op: the kernel forward, the plain version's gradient; at
+    # the L train shapes in float32 its gradient is the plain version's
+    value, loc, aw = _inputs(cuda, torch.float32, B=L_TRAIN["B"], Lq=L_TRAIN["Lq"],
+                             shapes=L_TRAIN["shapes"], seed=20)
+    g = torch.randn(value.shape[0], loc.shape[1], value.shape[2], device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    grads = []
+    for fn in (ms_deform_attn_fast_flat, ms_deform_attn_core):
+        ins = [t.clone().requires_grad_() for t in (value, loc, aw)]
+        before = msda_forward.launches
+        fn(ins[0], L_TRAIN["shapes"], ins[1], ins[2]).backward(g)
+        assert msda_forward.launches - before == (fn is ms_deform_attn_fast_flat)
+        grads.append([t.grad for t in ins])
+    for name, a, b in zip(("value", "locations", "weights"), *grads):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item(), name
+
+
+def _train_setup(dev, backend, remat=False, res=320):
+    """N at ``res`` px, batch 2, float32, one CDN batch: the model in training
+    and its step (accumulation 2, so the first micro-batch keeps .grad)."""
+    from detrpose_tpu_torch.configs import build_model, model_config
+    from detrpose_tpu_torch.parallel import make_train_step
+    from detrpose_tpu_torch.tools.benchmark import synthetic_train_batch
+    from detrpose_tpu_torch.train.optim import make_optimizer
+
+    model = build_model(model_config("n", msda_backend=backend, remat=remat), device=dev,
+                        generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.transformer.enc_out_class_embed.weight.mul_(50.0)
+    step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
+                           device=dev, compute_dtype=torch.float32, use_ema=False)
+    return model, step, synthetic_train_batch(2, res, 17, 60, dev, G=4, seed=3)
+
+
+def _grads(model):
+    return {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+@pytest.fixture(scope="module")
+def exact_zero_leaves():
+    """The leaves whose gradient is 0 in exact arithmetic at ``_train_setup``'s
+    step (below 1e-9 of the largest in a float64 run on the CPU): the shifts
+    and scales that the encoder's batch-statistics norms cancel. On the card
+    in float32 each is a sum of terms up to ~1e9 that cancels to a few of
+    their last bits, so any other order of the same sums moves it by tens;
+    it is no gradient to compare."""
+    model, step, batch = _train_setup(torch.device("cpu"), "gather")
+    model.double()
+    step(dict(batch, images=batch["images"].double()))
+    grads = _grads(model)
+    top = max(g.abs().max().item() for g in grads.values())
+    return {n for n, g in grads.items() if g.abs().max().item() <= 1e-9 * top}
+
+
+def _compare_grads(got, want, skip):
+    """Each leaf of ``want`` but those in ``skip`` within 1e-3 of its max|g|;
+    a leaf whose gradient is 0 up to rounding (a bias that the encoder's
+    norms cancel) is held against 1e-5 of the largest |g|."""
+    assert got.keys() == want.keys()
+    top = max(g.abs().max().item() for g in want.values())
+    held = [n for n in want if n not in skip]
+    assert len(held) > 0.6 * len(want), (len(held), len(want))
+    for n in held:
+        tol = 1e-3 * max(want[n].abs().max().item(), 1e-5 * top)
+        assert (got[n] - want[n]).abs().max().item() <= tol, n
+
+
+@pytest.fixture
+def exact_f32():
+    """Float32 without TF32, and deterministic algorithms: the gradients
+    that the encoder's batch-statistics norms cancel to rounding would
+    otherwise change with cuDNN's choice of algorithm from run to run."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic) = saved[:3]
+    torch.use_deterministic_algorithms(saved[3], warn_only=saved[4])
+
+
+@pytest.mark.gpu
+def test_n_train_step_auto_matches_gather(cuda, exact_f32, exact_zero_leaves):
+    # one N training micro-step through kernel #1 ("auto", 3 launches) and
+    # through the plain version ("gather"): the same losses and gradients
+    # (but for those that are 0 in exact arithmetic)
+    out = {}
+    for backend in ("auto", "gather"):
+        model, step, batch = _train_setup(cuda, backend)
+        before = msda_forward.launches
+        m = step(batch)
+        torch.cuda.synchronize()
+        assert msda_forward.launches - before == (3 if backend == "auto" else 0)
+        out[backend] = (m, _grads(model))
+    (ma, ga), (mg, gg) = out["auto"], out["gather"]
+    for k, v in mg.items():
+        if torch.is_tensor(v):
+            assert abs(ma[k].item() - v.item()) <= 1e-4 * abs(v.item()) + 1e-7, k
+    _compare_grads(ga, gg, exact_zero_leaves)
+
+
+@pytest.mark.gpu
+def test_remat_gives_the_same_gradients_on_the_card(cuda, exact_f32, exact_zero_leaves):
+    # torch.utils.checkpoint around each backbone stage and decoder layer:
+    # the recomputed forward launches kernel #1 again, and the gradients are
+    # those of the stored forward
+    grads = {}
+    for remat in (False, True):
+        model, step, batch = _train_setup(cuda, "auto", remat=remat)
+        before = msda_forward.launches
+        step(batch)
+        torch.cuda.synchronize()
+        assert msda_forward.launches - before == (6 if remat else 3)
+        grads[remat] = _grads(model)
+    _compare_grads(grads[True], grads[False], exact_zero_leaves)
