@@ -12,7 +12,9 @@ Phases (any failure exits non-zero before the last line is printed):
      than its source makes, or any instantiation has a stack frame or
      spills;
   3. hold each kernel against its plain PyTorch version on the card at small
-     shapes and at the DETRPose-L/N/X eval shapes, float32 (1e-5 of
+     shapes and at the DETRPose-L/N/X eval shapes, kernel #1 and its op
+     (output and gradients) also at the L train shapes of 640 px and of
+     main path 5's multi-scale extremes, 480 and 800 px, float32 (1e-5 of
      max|ref|) and bf16 values (1% of max|ref|); kernels #1 and #2 also at
      shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
      tiles), at 4 levels, and on a value map that starts 2 elements into its
@@ -75,9 +77,37 @@ Phases (any failure exits non-zero before the last line is printed):
      share, kernel families, the share of kernel #1's plain-version backward
      by its profiler range, and that backward timed alone), and the
      matcher's time with the auction and with scipy;
-  9. print the kernel table, the card line and, last, the result line.
+  9. main path 5, the Trainer: synthetic COCO-format sets written as JPEG
+     files (32 train and 16 val images of 640x480 and 480x640, 1-6
+     17-keypoint poses each; 8 CrowdPose images with 14 keypoints and
+     crowdIndex), then tools/train.py's command line trains DETRPose-L at
+     full width and depth (configs/coco/detrpose_l.py: 640 px with
+     multi-scale, total batch 16 in micro-batches of 8, 4 loader workers,
+     bf16) for 2 epochs through the dataset, augmentations, loader, Trainer,
+     evaluator and checkpoints, under deterministic algorithms. It fails
+     unless log.txt has a line an epoch with finite losses and the AP keys,
+     checkpoint, best and config.yaml exist (best_ema and best_regular
+     exactly when their stream's AP passed 0), and kernel #1 launched 6
+     times a train micro-step and a val batch and kernel #2 never; then
+     --eval --resume checkpoint must print epoch 1's EMA stats exactly; the
+     same checkpoint evaluated with msda_backend "gather" must give
+     detections within 1e-2 of max|ref| of kernel #1's (scores as their
+     logits in sorted order, each keypoint set against its nearest
+     counterpart, at most MAX_AT_BOUNDARY detections an image let off for a
+     logit at the other run's top-k boundary), and within 1e-4 evaluated in
+     float32; the evaluator must give AP 1.0 on the ground
+     truth and the same stats with its native and its Python match;
+     CrowdPose L --eval must report AP easy, medium and hard. It prints the
+     seconds an epoch, train and eval images/s, the share of the fit's time
+     spent waiting on the loader, the peak device memory, which match ran,
+     and the time of one more epoch without deterministic algorithms;
+ 10. print the kernel table, the card line and, last, the result line.
 """
+import contextlib
+import io
+import itertools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -88,8 +118,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image, ImageDraw
 
 from detrpose_tpu_torch.configs import build_model, model_config
+from detrpose_tpu_torch.data.evaluator import KeypointEvaluator
 from detrpose_tpu_torch.models.layers import BatchNorm
 from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
                                          ms_deform_attn_tpose, msda_ablate, msda_colsin,
@@ -113,10 +145,12 @@ from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda
 from detrpose_tpu_torch.tools.benchmark import launch_counts, synthetic_train_batch
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline
+from detrpose_tpu_torch.tools.train import main as train_main
 from detrpose_tpu_torch.train.matcher import hungarian_match
 from detrpose_tpu_torch.train.optim import label_parameters, make_optimizer
 from detrpose_tpu_torch.utils.deploy import fuse_for_deploy
 from detrpose_tpu_torch.utils.measure import cuda_time_ms, kernel_times, traced
+from detrpose_tpu_torch.utils.native import native_error
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -137,12 +171,26 @@ NL4_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 
 TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 8
 # kernel #1's calls on main path 4: (64 CDN slots + 60 queries) x 18 tokens
 TRAIN_SHAPES = dict(L_SHAPES, B=TRAIN_BATCH, Lq=124 * 18)
+# main path 5's multi-scale extremes (generate_scales(640, 4): square batches
+# of 480-800 px), levels at strides 8/16/32
+TRAIN_MS_SHAPES = {f"ms{px}": dict(TRAIN_SHAPES, levels=tuple((px // s, px // s)
+                                                              for s in (8, 16, 32)))
+                   for px in (480, 800)}
 # template instantiations of each library: #1 and #2 dtype x load width x
 # nP, #3 load width, #4 level count x taps from shared or device memory, #5
 # mode x load width and no_cexp's row pass
 INSTANTIATIONS = {"msda_fwd": 21, "msda_perquery": 21, "msda_colsin": 4, "msda_tpose": 8,
                   "msda_ablate": 19}
 COLSIN_TILES = (TILE, 512)     # #3's default tile and the TPU kernel's TP
+# main path 5, the Trainer: synthetic COCO-format sets (images, 17- and
+# 14-keypoint poses) and the L recipe's batches (configs/_base.py: 16 images
+# an optimiser step in micro-batches of 8), 2 epochs
+TRAINER_SETS = {"train": (32, 17), "val": (16, 17), "crowdpose": (8, 14)}
+TRAINER_EPOCHS, TRAINER_EVAL_BATCH = 2, 8
+# detections an image whose keypoints may go unmatched in the kernel-against-
+# plain comparison because their score sits at the other run's top-k
+# boundary (a run of this script on an H100 found none, bf16 and float32)
+MAX_AT_BOUNDARY = 2
 # published parameter counts and GFLOPs at 640 px (SURVEY.md, README.md:81-85
 # of the reference)
 PUBLISHED = {"n": (4.1, 9.3), "s": (11.5, 33.1), "m": (20.8, 67.3), "l": (32.8, 107.1),
@@ -342,11 +390,11 @@ def compare_outputs(label, got, want, limit):
 
 def check_kernels(g):
     """Phase 3: each kernel against its plain version; returns the max|err|
-    at the L shapes in bf16 per kernel."""
+    at the L, train and multi-scale shapes in bf16 per kernel."""
     errs = {}
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("train", TRAIN_SHAPES),
-                       ("N", N_SHAPES), ("X", X_SHAPES), ("odd", ODD_SHAPES),
-                       ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES)):
+                       *TRAIN_MS_SHAPES.items(), ("N", N_SHAPES), ("X", X_SHAPES),
+                       ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES)):
         for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             value, levels, loc, aw = msda_inputs(g, dtype, **shp)
             vflat, locp, awp = pack(value, loc, aw)
@@ -371,7 +419,8 @@ def check_kernels(g):
                       f"max|ref|)")
                 if not err <= rel * scale:
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
-                if label in ("L", "train") and dtype == torch.bfloat16:
+                if (label in ("L", "train") or label in TRAIN_MS_SHAPES) \
+                        and dtype == torch.bfloat16:
                     errs[name] = max(err, errs.get(name, 0.0))
     # the per-point kernels take the packed bf16 values the TPU ops cast to
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("odd", ODD_SHAPES),
@@ -806,8 +855,9 @@ def train_time_split(step, batch, n=TRAIN_ACCUM):
 
 
 def check_train_op(g):
-    """Phase 3: kernel #1's op (the custom op that main path 4 calls) at the
-    L train shapes against the plain version on the same inputs, float32 and
+    """Phase 3: kernel #1's op (the custom op that main paths 4 and 5 call)
+    at the L train shapes, 640 px and main path 5's multi-scale extremes,
+    against the plain version on the same inputs, float32 and
     bf16 values: its output, and the value, location and weight gradients
     of one upstream gradient, each within phase 3's limit of its max|ref|.
     Under deterministic algorithms: the value gradient is a scatter of
@@ -821,8 +871,10 @@ def check_train_op(g):
 
 
 def _check_train_op(g):
-    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-        value, levels, loc, aw = msda_inputs(g, dtype, **TRAIN_SHAPES)
+    for (label, shp), (dtype, rel) in itertools.product(
+            (("train", TRAIN_SHAPES), *TRAIN_MS_SHAPES.items()),
+            ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))):
+        value, levels, loc, aw = msda_inputs(g, dtype, **shp)
         ins = [t.requires_grad_() for t in (value, loc, aw)]
         grad = torch.randn(value.shape[0], loc.shape[1], value.shape[2], device="cuda",
                            generator=g).to(dtype)
@@ -836,11 +888,11 @@ def _check_train_op(g):
             got, want = got.float(), want.float()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            print(f"[3] msda_fwd op   train  {str(dtype):14s} {what:13s} max|err| {err:.3e} "
+            print(f"[3] msda_fwd op   {label:6s} {str(dtype):14s} {what:13s} max|err| {err:.3e} "
                   f"max|ref| {scale:.3e} (limit {rel:g} of max|ref|)")
             if not (err <= rel * scale and torch.isfinite(got).all()):
                 fail(f"kernel #1's op disagrees with the plain version on its {what} at the "
-                     f"L train shapes, {dtype}")
+                     f"L {label} shapes, {dtype}")
         del ins, results
 
 
@@ -861,6 +913,334 @@ def msda_backward_alone(g):
         f_ms = cuda_time_ms(lambda: ms_deform_attn_fast_flat(value, levels, loc, aw), iters=10)
     fb_ms = cuda_time_ms(fwd_bwd, iters=10)
     return f_ms, fb_ms - f_ms
+
+
+# a COCO-ordered 17-joint stick figure in a unit body frame (y down)
+POSE_17 = np.array([
+    (0.00, -1.00), (-0.08, -1.08), (0.08, -1.08), (-0.20, -1.02), (0.20, -1.02),
+    (-0.36, -0.70), (0.36, -0.70), (-0.52, -0.30), (0.52, -0.30), (-0.58, 0.10),
+    (0.58, 0.10), (-0.22, 0.00), (0.22, 0.00), (-0.26, 0.55), (0.26, 0.55),
+    (-0.28, 1.05), (0.28, 1.05)])
+
+
+def write_coco_set(root, n_images, K, rng, crowd=False):
+    """A synthetic COCO-format keypoint set under ``root``: ``n_images`` JPEG
+    images of 640x480 and 480x640 (noisy grey, per-joint coloured disks), 1-6
+    people an image (17 keypoints: the stick figure under a random scale,
+    rotation and mirror; 14: scattered joints), with boxes and areas; CrowdPose's
+    ``crowdIndex`` when ``crowd``. Returns (image dir, annotation file)."""
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    palette = [tuple(int(c) for c in rng.integers(40, 256, 3)) for _ in range(K)]
+    images, anns = [], []
+    for i in range(n_images):
+        w, h = (640, 480) if i % 2 == 0 else (480, 640)
+        img = Image.fromarray(rng.integers(96, 160, (h, w, 3), dtype=np.uint8))
+        draw = ImageDraw.Draw(img)
+        for _ in range(int(rng.integers(1, 7))):
+            s = rng.uniform(40, 110)
+            c = rng.uniform(s * 1.2, (w - s * 1.2, h - s * 1.2))
+            if K == 17:
+                rot = rng.uniform(-0.45, 0.45)
+                pts = POSE_17 * s * (rng.choice([-1.0, 1.0]), 1.0)
+                pts = pts @ np.array([[np.cos(rot), -np.sin(rot)], [np.sin(rot), np.cos(rot)]]).T
+            else:
+                pts = rng.uniform(-s, s, (K, 2))
+            xy = np.clip(c + pts + rng.uniform(-2, 2, pts.shape), 0, (w - 1, h - 1))
+            vis = np.where(rng.uniform(size=K) < 0.9, 2, 0)
+            for k, (x, y) in enumerate(xy):
+                draw.ellipse([x - 4, y - 4, x + 4, y + 4], fill=palette[k])
+            x0, y0 = xy.min(0)
+            bw, bh = xy.max(0) - (x0, y0)
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
+                         "keypoints": np.concatenate([xy, vis[:, None]], 1).ravel().tolist(),
+                         "num_keypoints": int((vis > 0).sum()),
+                         "bbox": [float(x0), float(y0), float(bw), float(bh)],
+                         "area": float(bw * bh)})
+        img.save(os.path.join(img_dir, f"{i:05d}.jpg"), quality=90)
+        info = {"id": i, "file_name": f"{i:05d}.jpg", "width": w, "height": h}
+        if crowd:
+            info["crowdIndex"] = float(rng.choice([0.05, 0.5, 0.9]))
+        images.append(info)
+    ann_file = os.path.join(root, "annotations.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return img_dir, ann_file
+
+
+def run_train_cli(argv):
+    """``tools/train.py::main(argv)``, the last lines of its standard output
+    echoed; returns (the Trainer, the last JSON line it printed or None)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer = train_main(argv)
+    out = buf.getvalue()
+    print("\n".join("    | " + line for line in out.splitlines()[-6:]))
+    printed = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    return trainer, (printed[-1] if printed else None)
+
+
+def compare_detections(got, want, rel):
+    """The kernel's detections (``KeypointEvaluator.dets``) against the plain
+    version's, image by image -> (scores' error, keypoints' error, the most
+    detections of one image let off at the top-k boundary), each error over
+    max|ref|.
+
+    Scores compare as the logits they are the sigmoid of (the model's own
+    output, whose bf16 last place is 2^-7 of it), in sorted order: the i-th
+    best of two sets of logits differ by no more than the logits do, whatever
+    near-tied pairs swap or cross the top-k boundary. Each detection's (x, y)
+    keypoints compare with the nearest of the other run's detections; one
+    with no match within ``rel`` is let off only at the boundary, its logit
+    within ``rel`` of max|ref| of the other run's lowest, and only
+    MAX_AT_BOUNDARY of them an image."""
+    if got.keys() != want.keys():
+        fail("the two evaluations saw other images")
+
+    def logits(ds):
+        s = np.clip(np.array([d["score"] for d in ds], np.float64), 1e-12, 1 - 1e-12)
+        return np.log(s / (1 - s))
+
+    l_ref = max(np.abs(logits(ds)).max() for ds in want.values())
+    k_ref = float(max(np.abs(d["keypoints"][:, :2]).max() for ds in want.values() for d in ds))
+    worst_l = worst_k = 0.0
+    boundary = 0
+    for img, wd in want.items():
+        at_edge = 0
+        gd = got[img]
+        if len(gd) != len(wd):
+            fail(f"image {img}: {len(gd)} detections against {len(wd)}")
+        gl, wl = logits(gd), logits(wd)
+        worst_l = max(worst_l, float(np.abs(np.sort(gl) - np.sort(wl)).max()))
+        wk = np.stack([e["keypoints"][:, :2] for e in wd])
+        for d, lg in zip(gd, gl):
+            err = float(np.abs(wk - d["keypoints"][:, :2]).max((1, 2)).min())
+            if err > rel * k_ref and lg - wl.min() <= rel * l_ref:
+                at_edge += 1
+                continue
+            worst_k = max(worst_k, err)
+        if at_edge > MAX_AT_BOUNDARY:
+            fail(f"image {img}: {at_edge} detections at the top-k boundary with no "
+                 f"counterpart, more than {MAX_AT_BOUNDARY}")
+        boundary = max(boundary, at_edge)
+    return float(worst_l / l_ref), worst_k / k_ref, boundary
+
+
+def trainer_path(card):
+    """Main path 5 (phase 9): the training command line on DETRPose-L at
+    full width and depth, 640 px, bf16, through the real dataset, augmentations,
+    worker pool, loader, Trainer, evaluator and checkpoints; then --eval
+    --resume, the plain version's evaluation of the same checkpoint, the
+    evaluator's own checks and CrowdPose. Returns the launch counts of the
+    training command and the numbers to report."""
+    rng = np.random.default_rng(SEED)
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        sets = {name: write_coco_set(os.path.join(root, name), n, K, rng,
+                                     crowd=(name == "crowdpose"))
+                for name, (n, K) in TRAINER_SETS.items()}
+        return _trainer_path(card, root, sets)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _trainer_path(card, root, sets):
+    out = os.path.join(root, "out")
+    (img_dir, ann), (vdir, vann), (cdir, cann) = (sets[k] for k in ("train", "val", "crowdpose"))
+    coco_l = ["--config", "configs/coco/detrpose_l.py", "--val-img-dir", vdir,
+              "--val-ann", vann, "--output-dir", out, "--options",
+              f"training_params.eval_batch_size={TRAINER_EVAL_BATCH}"]
+    # every evaluation of this path, in the run that trains too, under
+    # deterministic algorithms: the resumed evaluation must repeat epoch 1's
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        trainer, _ = run_train_cli(["--img-dir", img_dir, "--ann", ann, "--epochs",
+                                    str(TRAINER_EPOCHS), "--batch-size", "16"] + coco_l)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist = [dict(h) for h in trainer.history]   # the fit's own epochs
+        n_train = len(trainer.train_loader)
+        n_val = len(trainer.val_loader)
+        if trainer.step.step != TRAINER_EPOCHS * n_train or n_train != 4 or n_val != 2:
+            fail(f"the trainer took {trainer.step.step} micro-steps ({n_train} an epoch) and "
+                 f"{n_val} eval batches")
+        # 6 launches a forward: every train micro-step, and every eval batch
+        # of the EMA's and the live weights' evaluation each epoch
+        want = {k: 0 for k in KERNELS}
+        want["msda_fwd"] = 6 * (trainer.step.step + 2 * TRAINER_EPOCHS * n_val)
+        print(f"[9] Trainer L (bs 16 = 2 x 8, 640 px base, multi-scale, bf16, {TRAINER_EPOCHS} "
+              f"epochs): {trainer.step.step} micro-steps, {trainer.optimizer.updates} optimiser "
+              f"steps, {2 * TRAINER_EPOCHS * n_val} eval batches; kernel launches {counts}")
+        if counts != want:
+            fail(f"main path 5 launched {counts}, expected {want}")
+        with open(os.path.join(out, "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        if len(log) != TRAINER_EPOCHS or not all(
+                np.isfinite(r["train_loss_total"]) and "AP" in r and "regular_AP" in r
+                for r in log):
+            fail(f"log.txt: {log}")
+        for r in log:
+            print(f"[9] log.txt epoch {r['epoch']}: train_loss_total {r['train_loss_total']:.4f}, "
+                  f"AP {r['AP']}, regular_AP {r['regular_AP']}, lr {r['train_lr']}")
+        # best_ema / best_regular follow their stream's best AP, which starts
+        # at 0: with AP 0 (random weights after 8 micro-steps) none is written
+        files = {name: os.path.exists(os.path.join(out, name))
+                 for name in ("checkpoint", "best", "best_ema", "best_regular", "config.yaml")}
+        holder = trainer.best_holder
+        want_files = {"checkpoint": True, "best": True, "config.yaml": True,
+                      "best_ema": holder.best_ema["best_ep"] >= 0,
+                      "best_regular": holder.best_regular["best_ep"] >= 0}
+        print(f"[9] files written: {files}; stream bests {holder.summary()}")
+        if files != want_files:
+            fail(f"the run directory holds {files}, expected {want_files}")
+
+        # resume and evaluate: epoch 1's EMA stats, exactly, and the same
+        # detections, bit for bit, as the trained Trainer's EMA evaluation
+        again = trainer.evaluate(use_ema=True)
+        zero_launch_counts()
+        resumed, printed = run_train_cli(["--eval", "--resume",
+                                          os.path.join(out, "checkpoint")] + coco_l)
+        logged = {k: v for k, v in log[-1].items() if k in printed}
+        same_dets = (resumed.evaluator.dets.keys() == trainer.evaluator.dets.keys() and all(
+            len(a) == len(b) and all(d["score"] == e["score"] and
+                                     np.array_equal(d["keypoints"], e["keypoints"])
+                                     for d, e in zip(a, b))
+            for a, b in ((resumed.evaluator.dets[i], trainer.evaluator.dets[i])
+                         for i in trainer.evaluator.dets)))
+        print(f"[9] --eval --resume checkpoint printed AP {printed['AP']}, AR {printed['AR']}: "
+              f"{'equal to' if printed == logged == again else 'NOT equal to'} the epoch "
+              f"{log[-1]['epoch']} EMA stats of log.txt and of the trained Trainer's EMA "
+              f"evaluation ({len(printed)} stats); its {sum(map(len, resumed.evaluator.dets.values()))} "
+              f"detections {'bit for bit' if same_dets else 'NOT'} those of the latter; launches "
+              f"{launch_counts()}")
+        if printed != logged or printed != again or not same_dets \
+                or launch_counts()["msda_fwd"] != 6 * n_val:
+            fail(f"--eval --resume printed {printed}, log.txt has {logged}, the trained "
+                 f"Trainer {again}; detections equal {same_dets}")
+
+        # the same checkpoint through the plain version
+        plain, _ = run_train_cli(["--eval", "--resume", os.path.join(out, "checkpoint")]
+                                 + coco_l + ["model_overrides.msda_backend=gather"])
+        if launch_counts()["msda_fwd"] != 6 * n_val:
+            fail("the plain version's evaluation launched kernel #1")
+        err_l, err_k, n_edge = compare_detections(resumed.evaluator.dets,
+                                                  plain.evaluator.dets, 1e-2)
+        print(f"[9] detections of kernel #1 against msda_backend='gather' on the checkpoint "
+              f"(bf16): score logits {err_l:.3e}, keypoints {err_k:.3e} of max|ref| (limit "
+              f"1e-2; at most {n_edge} detections an image at the top-k boundary, limit "
+              f"{MAX_AT_BOUNDARY})")
+        if not (err_l <= 1e-2 and err_k <= 1e-2):
+            fail("kernel #1's detections differ from the plain version's")
+        # and in float32 (TF32 off), where they agree to float32 rounding
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        f32 = []
+        for tr in (resumed, plain):
+            tr.compute_dtype = torch.float32
+            tr.evaluate()
+            f32.append(tr.evaluator.dets)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        err32 = compare_detections(*f32, 1e-4)
+        print(f"[9] the same in float32: score logits {err32[0]:.3e}, keypoints {err32[1]:.3e} "
+              f"of max|ref| (limit 1e-4; at most {err32[2]} an image at the boundary)")
+        if not (err32[0] <= 1e-4 and err32[1] <= 1e-4):
+            fail("kernel #1's float32 detections differ from the plain version's")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+    # the evaluator: the ground truth as detections; the native match and
+    # the Python loop on the checkpoint's detections plus jittered copies of
+    # the ground truth (random weights alone match nothing)
+    gts = trainer.val_gts
+    ev = KeypointEvaluator(gts, 17)
+    for img, g in gts.items():
+        ev.update(img, np.ones(len(g["anns"])), np.stack([a["keypoints"] for a in g["anns"]]))
+    ev.accumulate()
+    gt_stats = ev.summarize()
+    stats = {}
+    for native in (True, False):
+        e = KeypointEvaluator(gts, 17, use_native=native)
+        e.merge([resumed.evaluator])
+        r = np.random.default_rng(SEED + 1)
+        for img, g in gts.items():
+            k = np.stack([a["keypoints"] for a in g["anns"]]).copy()
+            k[:, :, :2] += r.normal(0, 1, (len(k), 1, 1)) * r.uniform(0, 8, (len(k), 17, 2))
+            e.update(img, r.uniform(0, 1, len(k)), k)
+        e.accumulate()
+        stats[native] = (e.summarize(), e.matched_by)
+    matched_by = resumed.evaluator.matched_by
+    print(f"[9] evaluator: the ground truth as detections gives AP {gt_stats['AP']}, AR "
+          f"{gt_stats['AR']}; the checkpoint's detections and jittered ground truth: AP "
+          f"{stats[True][0]['AP']:.6f} by the {stats[True][1]} match, {stats[False][0]['AP']:.6f} "
+          f"by the {stats[False][1]} loop, all {len(stats[True][0])} stats "
+          f"{'identical' if stats[True][0] == stats[False][0] else 'DIFFERENT'}; the trainer's "
+          f"evaluations ran the {matched_by} match"
+          + (f" (the native one did not build: {native_error()})" if matched_by != "native"
+             else ""))
+    if gt_stats["AP"] != 1.0 or gt_stats["AR"] != 1.0 or stats[True][0] != stats[False][0] \
+            or not 0.0 < stats[True][0]["AP"] < 1.0:
+        fail(f"evaluator: ground truth {gt_stats}, native {stats[True]}, Python {stats[False]}")
+
+    # CrowdPose: 14 keypoints, box-area OKS, AP easy / medium / hard
+    zero_launch_counts()
+    _, crowd = run_train_cli(["--eval", "--config", "configs/crowdpose/detrpose_l.py",
+                              "--val-img-dir", cdir, "--val-ann", cann, "--output-dir",
+                              os.path.join(root, "crowd"), "--options",
+                              f"training_params.eval_batch_size={TRAINER_EVAL_BATCH}"])
+    print(f"[9] CrowdPose L --eval (14 keypoints, {TRAINER_SETS['crowdpose'][0]} images): "
+          + ", ".join(f"{k} {crowd.get(k)}" for k in ("AP", "AP_easy", "AP_medium", "AP_hard"))
+          + f"; launches {launch_counts()}")
+    if not {"AP_easy", "AP_medium", "AP_hard"} <= crowd.keys() or launch_counts()["msda_fwd"] != 6:
+        fail(f"CrowdPose --eval printed {crowd}")
+
+    train_s = sum(h["epoch_s"] for h in hist)
+    eval_s = sum(h["eval_s"] for h in hist)
+    numbers = {
+        "fit_s": fit_s, "epoch_s": [h["epoch_s"] for h in hist],
+        "epoch_with_eval_s": [h["epoch_s"] + h["eval_s"] for h in hist],
+        "train_img_per_s": sum(h["train_images"] for h in hist) / train_s,
+        "eval_img_per_s": sum(h["eval_images"] for h in hist) / eval_s,
+        "loader_wait_share": sum(h["data_wait_s"] for h in hist) / fit_s,
+        "peak_mem_bytes": peak, "mem_before_bytes": base_mem, "matched_by": matched_by,
+        "detections_err": {"bf16": {"score_logits": err_l, "keypoints": err_k,
+                                    "at_boundary": n_edge},
+                           "float32": dict(zip(("score_logits", "keypoints", "at_boundary"),
+                                               err32))},
+        "data_wait_s": [h["data_wait_s"] for h in hist],
+        "step_ms": [r.get("train_step_ms") for r in log],
+    }
+    # one more epoch of the same Trainer without deterministic algorithms:
+    # what they cost the step (the comparisons above need them)
+    extra = trainer.train_one_epoch(TRAINER_EPOCHS)
+    numbers["nondeterministic"] = {k: extra.get(k) for k in ("epoch_s", "step_ms")}
+    if not extra["finite"] == 1.0:
+        fail(f"the extra epoch: {extra}")
+    print(f"[9] Trainer L timing (host clock, deterministic algorithms on): fit "
+          f"{fit_s:.2f} s for {TRAINER_EPOCHS} epochs (command, model build and checkpoints "
+          f"included); training epochs " + ", ".join(f"{t:.2f}" for t in numbers["epoch_s"])
+          + " s (" + ", ".join(f"{t:.2f}" for t in numbers["epoch_with_eval_s"])
+          + f" s with both evaluations); train {numbers['train_img_per_s']:.1f} img/s, "
+          f"eval {numbers['eval_img_per_s']:.1f} img/s; waiting on the loader "
+          f"{100 * numbers['loader_wait_share']:.1f}% of the fit's wall time (by epoch "
+          + ", ".join(f"{t:.2f}" for t in numbers["data_wait_s"]) + " s); steady step "
+          + ", ".join(f"{t:.3f}" for t in numbers["step_ms"] if t is not None)
+          + f" ms; peak device memory {peak / 2**30:.2f} GiB ({base_mem / 2**30:.2f} GiB "
+          f"held before); the {matched_by} match; on {card}")
+    step = extra.get("step_ms")
+    print(f"[9] one more epoch without deterministic algorithms: {extra['epoch_s']:.2f} s, "
+          f"steady step {'not measured (every shape new)' if step is None else f'{step:.3f} ms'}"
+          f"; on {card}")
+    return counts, numbers
 
 
 def main():
@@ -1121,7 +1501,12 @@ def main():
         fail(f"bench_train_step: finite {bench_train['finite']}, launches "
              f"{bench_train['launches']}")
 
-    # ---- 9. report
+    # ---- 9. main path 5: the Trainer
+    torch.cuda.empty_cache()
+    counts_trainer, trainer_numbers = trainer_path(card)
+    total = {k: total[k] + counts_trainer[k] for k in KERNELS}
+
+    # ---- 10. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
                "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
@@ -1152,7 +1537,8 @@ def main():
                       "train": {"bench": bench_train, "trace": split,
                                 "msda_op_train_shapes_ms": {"forward": bwd_alone[0],
                                                             "backward": bwd_alone[1]},
-                                "matcher_ms": matcher_ms}}))
+                                "matcher_ms": matcher_ms},
+                      "trainer": trainer_numbers}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

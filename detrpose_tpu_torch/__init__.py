@@ -12,13 +12,18 @@ DETRPose ``state_dict`` keys, so zoo checkpoints load with
 - ``models``   ``nn.Module``s: HGNetv2 backbone, HybridEncoder, deformable pose
                decoder, post-process (eval and train paths).
 - ``train``    CDN denoising queries, the matcher, the criterion, the
-               optimiser and EMA; ``parallel`` the training step.
+               optimiser and EMA, and the Trainer (epochs, evaluation,
+               checkpoints); ``parallel`` the training step.
+- ``data``     COCO / CrowdPose keypoint datasets, augmentations, the batch
+               loader and the OKS AP evaluator (host-side numpy and PIL).
+- ``core``     the lazy config system that reads ``configs/*/*.py``.
 - ``configs``  the N/S/M/L/X presets and ``build_model`` (train or deploy form).
 - ``utils``    weight carry from the JAX variables and zoo ``.pth`` loading,
-               deploy re-parameterisation, CUDA-event timing.
+               deploy re-parameterisation, CUDA-event timing, checkpoints,
+               meters, the evaluator's native match.
 - ``tools``    ``infer.build_pipeline``, the serving entry point; the
-               ``benchmark`` (forward and training step), ``pallas_bench`` and
-               ``export`` command lines.
+               ``train`` (training and evaluation), ``benchmark`` (forward and
+               training step), ``pallas_bench`` and ``export`` command lines.
 
 Entry points run on the CUDA device unless the caller passes ``device="cpu"``.
 """

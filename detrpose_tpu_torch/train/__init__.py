@@ -1,1 +1,2 @@
-"""Training: CDN queries, the matcher, the criterion, the optimiser and EMA."""
+"""Training: CDN queries, the matcher, the criterion, the optimiser and EMA,
+and the Trainer."""

@@ -512,3 +512,41 @@ def test_remat_gives_the_same_gradients_on_the_card(cuda, exact_f32, exact_zero_
         assert msda_forward.launches - before == (6 if remat else 3)
         grads[remat] = _grads(model)
     _compare_grads(grads[True], grads[False], exact_zero_leaves)
+
+
+@pytest.mark.gpu
+def test_n_trainer_evaluate_auto_matches_gather(cuda, exact_f32, tmp_path):
+    # Trainer.evaluate of N (float32, 160 px, 4 val images, batch 2) through
+    # kernel #1 ("auto", 3 launches a batch) and through the plain version:
+    # the same detections, to 1e-4 of max|ref|, and the same stats
+    from synth_data import make_tiny_coco
+
+    from detrpose_tpu_torch.configs import build_model, model_config
+    from detrpose_tpu_torch.data.coco import CocoKeypointDataset
+    from detrpose_tpu_torch.data.loader import KeypointLoader
+    from detrpose_tpu_torch.data.transforms import EvalTransforms
+    from detrpose_tpu_torch.tools.train import val_ground_truth
+    from detrpose_tpu_torch.train.trainer import Trainer
+
+    img_dir, ann = make_tiny_coco(str(tmp_path), n_images=4, w=160, h=120, seed=2,
+                                  draw=True, structured=True)
+    vds = CocoKeypointDataset(img_dir, ann, 17, transforms=EvalTransforms(160))
+    out = {}
+    for backend in ("auto", "gather"):
+        cfg = model_config("n", msda_backend=backend)
+        model = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(3))
+        tr = Trainer(model, cfg, val_loader=KeypointLoader(vds, 2, 17, with_cdn=False,
+                                                           drop_last=False),
+                     val_gts=val_ground_truth(vds, 17), output_dir=str(tmp_path / backend),
+                     tensorboard=False, compute_dtype=torch.float32, device=cuda)
+        before = msda_forward.launches
+        stats = tr.evaluate()
+        assert msda_forward.launches - before == (3 * 2 if backend == "auto" else 0)
+        out[backend] = (stats, tr.evaluator.dets)
+    (sa, da), (sg, dg) = out["auto"], out["gather"]
+    assert sa == sg and da.keys() == dg.keys()
+    ref = max(np.abs(d["keypoints"]).max() for ds in dg.values() for d in ds)
+    for img in dg:
+        for a, g in zip(da[img], dg[img], strict=True):
+            assert abs(a["score"] - g["score"]) <= 1e-4
+            assert np.abs(a["keypoints"] - g["keypoints"]).max() <= 1e-4 * ref
