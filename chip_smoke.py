@@ -14,8 +14,10 @@ Phases (any failure exits non-zero before the last line is printed):
   3. hold each kernel against its plain PyTorch version on the card at small
      shapes and at the DETRPose-L/N/X eval shapes, kernel #1 and its op
      (output and gradients) also at the L train shapes of 640 px and of
-     main path 5's multi-scale extremes, 480 and 800 px, float32 (1e-5 of
-     max|ref|) and bf16 values (1% of max|ref|); kernels #1 and #2 also at
+     main path 5's multi-scale extremes, 480 and 800 px, and at main path
+     6's micro-batches (4 images at 640 px; 2 and 4 at 480 and 800 px; the
+     eval shapes at 4), float32 (1e-5 of max|ref|) and bf16 values (1% of
+     max|ref|); kernels #1 and #2 also at
      shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
      tiles), at 4 levels, and on a value map that starts 2 elements into its
      buffer; the per-point kernels #3-#5 (#3 at tiles 256 and 512, every
@@ -101,16 +103,49 @@ Phases (any failure exits non-zero before the last line is printed):
      seconds an epoch, train and eval images/s, the share of the fit's time
      spent waiting on the loader, the peak device memory, which match ran,
      and the time of one more epoch without deterministic algorithms;
- 10. print the kernel table, the card line and, last, the result line.
+ 10. main path 6, data parallelism over ranks (a process group, DDP, the
+     global BN statistics, loss normalisers and skip): (a) the L training
+     step of main path 4 in 2 spawned ranks on the one card over gloo, 4
+     images a rank of the same bs-8 batch with its one CDN block, one
+     optimiser step held against one process's (in bf16 the loss within
+     1%; in float32, TF32 off, one step of accumulation 1: the loss within
+     1e-4, each leaf's all-reduced gradient and its update within 2%, but
+     for the leaves that a float64 step finds 0 in exact arithmetic), the
+     ranks' parameters, EMA and BN statistics bit for bit equal, kernel #1
+     6 launches a micro-step in each rank, a NaN on one rank skipped by
+     both; each rank's time a micro-step against one process's at the same
+     global batch and without the gradient all-reduce (no_sync), rank 0's
+     host self time in the collectives' calls by the profiler against the
+     untraced step, peak memory a rank; (b) tools/train.py's command line
+     (Trainer.fit, one epoch of an 8-image synthetic set, with its
+     evaluations) in 2 ranks over gloo: the same stats on both ranks and
+     from one process's --eval --resume of rank 0's checkpoint, files from
+     rank 0 alone; (c) the command line under torch.distributed.run
+     --nproc_per_node 1 on NCCL, DDP on the card; (d) with two cards or
+     more, (a) over NCCL across two. Gloo between two ranks of one card
+     exercises the collectives' host path, not NVLink or NCCL: no scaling
+     figure. A rank that fails or misses its deadline fails the phase;
+ 11. print the kernel table, the card line and, last, the result line.
+
+Whether it passes or fails, the script ends only after every process it
+started has: it adopts its descendants' orphans (a rank's data worker
+server outlives its rank), stops the loader's worker server and
+multiprocessing's resource tracker, and waits for the rest, signalling any
+that does not end (``stop_children``; what it signals goes to stderr).
 """
 import contextlib
+import ctypes
+import gc
+import glob
 import io
 import itertools
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -139,8 +174,9 @@ from detrpose_tpu_torch.ops.ms_deform_attn import ms_deform_attn_core
 from detrpose_tpu_torch.ops.msda_pack import (column_planes, pack_values_tposed,
                                               pack_values_xminor)
 from detrpose_tpu_torch.ops.msda_pack import pack_points as pack_point_levels
-from detrpose_tpu_torch.parallel import make_train_step
-from detrpose_tpu_torch.parallel.train_step import PHASES
+from detrpose_tpu_torch.parallel.dist import free_port, run_ranks
+from detrpose_tpu_torch.parallel.mesh import shard_batch
+from detrpose_tpu_torch.parallel.train_step import PHASES, make_train_step
 from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda_v2, pallas_bench
 from detrpose_tpu_torch.tools.benchmark import launch_counts, synthetic_train_batch
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
@@ -176,6 +212,17 @@ TRAIN_SHAPES = dict(L_SHAPES, B=TRAIN_BATCH, Lq=124 * 18)
 TRAIN_MS_SHAPES = {f"ms{px}": dict(TRAIN_SHAPES, levels=tuple((px // s, px // s)
                                                               for s in (8, 16, 32)))
                    for px in (480, 800)}
+# main path 6: two ranks (one card's over gloo, two cards' over NCCL); the
+# step takes the bs-8 batch in shares of 4; the command line runs on a set of
+# DP_SET images, in micro-batches of DP_SET // TRAIN_ACCUM // ranks at the
+# multi-scale sizes (2 ranks, and 1 under torch.distributed.run) and
+# evaluation batches of DP_EVAL_BATCH
+DP_RANKS, DP_SET, DP_EVAL_BATCH = 2, 8, 4
+DP_SHAPES = {"dp4": dict(TRAIN_SHAPES, B=TRAIN_BATCH // DP_RANKS),
+             **{f"dp{b}{label}": dict(shp, B=b) for b in (DP_SET // TRAIN_ACCUM // DP_RANKS,
+                                                          DP_SET // TRAIN_ACCUM)
+                for label, shp in TRAIN_MS_SHAPES.items()},
+             "Ldp4": dict(L_SHAPES, B=DP_EVAL_BATCH)}
 # template instantiations of each library: #1 and #2 dtype x load width x
 # nP, #3 load width, #4 level count x taps from shared or device memory, #5
 # mode x load width and no_cexp's row pass
@@ -199,6 +246,68 @@ PUBLISHED = {"n": (4.1, 9.3), "s": (11.5, 33.1), "m": (20.8, 67.3), "l": (32.8, 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+PR_SET_CHILD_SUBREAPER = 36    # linux/prctl.h
+
+
+def adopt_orphans():
+    """Make this process the parent of its descendants' orphans, so that
+    ``stop_children`` finds and waits for them: a spawned rank's data worker
+    server, for one, ends only after its rank has."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER): {os.strerror(ctypes.get_errno())}")
+
+
+def children():
+    """{pid: (state, command line)} of this process's children, from /proc."""
+    me, found = os.getpid(), {}
+    for path in glob.glob("/proc/[0-9]*/stat"):
+        try:
+            with open(path) as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            if int(ppid) == me:
+                pid = int(path.split("/")[2])
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    found[pid] = (state, f.read().replace(b"\0", b" ").decode(errors="replace"))
+        except (OSError, ValueError):     # it ended meanwhile
+            continue
+    return found
+
+
+def stop_children(grace_s=10.0, deadline_s=30.0):
+    """Stop every process this script started that still runs, and wait for
+    it: the loader's worker server and the resource tracker through their
+    own stop (closing the pipe each watches, then waiting; the collection
+    first lets the pools' semaphores unregister, so the tracker finds none
+    left to unlink), then any other child, an adopted orphan too, given
+    ``grace_s`` to end, SIGTERM, and SIGKILL past ``deadline_s``. Returns
+    {pid: command line} of those signalled."""
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    t0, signalled = time.monotonic(), {}
+    while True:
+        live = {}
+        for pid, (state, cmd) in children().items():
+            if state == "Z":
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, 0)
+            else:
+                live[pid] = cmd
+        if not live:
+            return signalled
+        waited = time.monotonic() - t0
+        if waited > grace_s:
+            sig = signal.SIGKILL if waited > deadline_s else signal.SIGTERM
+            for pid, cmd in live.items():
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, sig)
+                signalled[pid] = cmd
+        time.sleep(0.05)
 
 
 def card_line():
@@ -390,11 +499,13 @@ def compare_outputs(label, got, want, limit):
 
 def check_kernels(g):
     """Phase 3: each kernel against its plain version; returns the max|err|
-    at the L, train and multi-scale shapes in bf16 per kernel."""
+    at the L, train, multi-scale and main path 6's shapes in bf16 per
+    kernel."""
     errs = {}
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("train", TRAIN_SHAPES),
-                       *TRAIN_MS_SHAPES.items(), ("N", N_SHAPES), ("X", X_SHAPES),
-                       ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES)):
+                       *TRAIN_MS_SHAPES.items(), *DP_SHAPES.items(), ("N", N_SHAPES),
+                       ("X", X_SHAPES), ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES),
+                       ("offset", TEST_SHAPES)):
         for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             value, levels, loc, aw = msda_inputs(g, dtype, **shp)
             vflat, locp, awp = pack(value, loc, aw)
@@ -419,7 +530,7 @@ def check_kernels(g):
                       f"max|ref|)")
                 if not err <= rel * scale:
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
-                if (label in ("L", "train") or label in TRAIN_MS_SHAPES) \
+                if (label in ("L", "train") or label in TRAIN_MS_SHAPES or label in DP_SHAPES) \
                         and dtype == torch.bfloat16:
                     errs[name] = max(err, errs.get(name, 0.0))
     # the per-point kernels take the packed bf16 values the TPU ops cast to
@@ -855,8 +966,9 @@ def train_time_split(step, batch, n=TRAIN_ACCUM):
 
 
 def check_train_op(g):
-    """Phase 3: kernel #1's op (the custom op that main paths 4 and 5 call)
-    at the L train shapes, 640 px and main path 5's multi-scale extremes,
+    """Phase 3: kernel #1's op (the custom op that main paths 4-6 call) at
+    the L train shapes, 640 px and main path 5's multi-scale extremes, and
+    at main path 6's micro-batches of 4 and 2 images,
     against the plain version on the same inputs, float32 and
     bf16 values: its output, and the value, location and weight gradients
     of one upstream gradient, each within phase 3's limit of its max|ref|.
@@ -872,7 +984,8 @@ def check_train_op(g):
 
 def _check_train_op(g):
     for (label, shp), (dtype, rel) in itertools.product(
-            (("train", TRAIN_SHAPES), *TRAIN_MS_SHAPES.items()),
+            (("train", TRAIN_SHAPES), *TRAIN_MS_SHAPES.items(),
+             *((k, v) for k, v in DP_SHAPES.items() if v["Lq"] == TRAIN_SHAPES["Lq"])),
             ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))):
         value, levels, loc, aw = msda_inputs(g, dtype, **shp)
         ins = [t.requires_grad_() for t in (value, loc, aw)]
@@ -1243,6 +1356,468 @@ def _trainer_path(card, root, sets):
     return counts, numbers
 
 
+# ---- main path 6: data parallelism over ranks --------------------------
+DP_DEADLINE_S = 420          # each spawn of ranks, joined or killed
+DP_TIMED = 2 * TRAIN_ACCUM   # micro-steps timed after the checked ones, each way
+# the 2-rank step against one process on the same bs-8 batch. In bf16 (the
+# path as users run it): the global losses within bf16's 1%. In float32 (TF32
+# off, deterministic algorithms), one optimiser step of accumulation 1: the
+# global loss within 1e-4 relative (one N step's loss against JAX's,
+# tests/test_torch_train_step.py); each leaf's all-reduced gradient within
+# DP_GRAD_REL of its max|g| (at least 1e-5 of the largest |g|), and its
+# update within DP_UPDATE_REL of its L2 norm. Two runs on an H100 read at
+# most 6.3e-3 and 5.2e-3, the same to four digits (the encoder's pose head,
+# the first decoder layer's sampling offsets: the ranks' convs and matmuls
+# run at half the batch, other orders of the same sums); a rank that
+# missed a reduction would be off by tens of percent. Left out: the leaves
+# whose gradient is 0 in exact arithmetic, below DP_ZERO_REL of the largest
+# in a float64 step (the shifts and scales that batch-statistics norms
+# cancel: in float32 each is a sum that cancels to its rounding, which any
+# other order of the same sums moves by tens)
+DP_LOSS_REL, DP_F32_REL, DP_GRAD_REL, DP_UPDATE_REL, DP_ZERO_REL = 1e-2, 1e-4, 2e-2, 2e-2, 1e-9
+# profiler events of the collectives (gloo's, NCCL's and torch.distributed's)
+COLLECTIVE_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather", "broadcast",
+                   "gloo", "nccl", "c10d")
+
+
+def state_bits(step):
+    """The parameters, EMA weights and floating buffers of a step as one
+    int32 vector of their bits."""
+    ts = ([p.detach() for p in step.model.parameters()]
+          + [b for b in step.model.buffers() if b.is_floating_point()]
+          + list(step.ema.state_dict().values()))
+    return torch.cat([t.reshape(-1).view(torch.int32) for t in ts])
+
+
+def bit_identical_across_ranks(step):
+    """Whether every rank holds the same bits (their max equals their min)."""
+    import torch.distributed as dist
+
+    bits = state_bits(step)
+    hi, lo = bits.clone(), bits.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(torch.equal(hi, lo))
+
+
+def dp_batch():
+    """The fixed bs-8 batch of main path 4, every image with its CDN block."""
+    return synthetic_train_batch(TRAIN_BATCH, 640, 17, 60, "cuda", seed=SEED)
+
+
+def dp_train_step(accum=TRAIN_ACCUM, backend="auto", dtype=torch.float32, **kwargs):
+    """DETRPose-L from the seed (phase 4's perturbed constant leaves, so no
+    two queries tie in the matcher: a tie's assignment would follow the
+    rounding, and its gradients with it) with its parameters in ``dtype``,
+    and its step (the bs-8 recipe: bf16 and accumulation 2 unless asked),
+    which keeps the gradients it steps with in ``step.grads``."""
+    model = l_train_model(backend).to(dtype)
+    opt = make_optimizer(model, grad_accum_steps=accum)
+    step = make_train_step(model, opt, 17, **kwargs)
+    real = opt.step
+
+    def keep_grads():
+        step.grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None}
+        return real()
+    opt.step = keep_grads
+    return step
+
+
+@contextlib.contextmanager
+def exact_float32():
+    """Float32 without TF32, and deterministic algorithms; TF32 on after."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+
+def dp_float32_step(batch):
+    """One optimiser step (accumulation 1) of dp_train_step's model on
+    ``batch`` under exact_float32: the global loss terms, the (all-reduced)
+    gradients it stepped with and each leaf's update, on the CPU."""
+    with exact_float32():
+        step = dp_train_step(accum=1, compute_dtype=torch.float32, use_ema=False)
+        before = {n: p.detach().clone() for n, p in step.model.named_parameters()}
+        terms = {k: v.item() for k, v in step(batch).items() if torch.is_tensor(v)}
+        update = {n: (p.detach() - before[n]).cpu() for n, p in step.model.named_parameters()}
+    return {"terms": terms, "grads": step.grads, "update": update}
+
+
+def dp_exact_zero_leaves(batch):
+    """The leaves whose gradient in one float64 step of the plain-version
+    model on ``batch`` is below DP_ZERO_REL of the largest; and the step's
+    peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    step = dp_train_step(accum=1, backend="gather", dtype=torch.float64,
+                         compute_dtype=torch.float32, use_ema=False)
+    step(dict(batch, images=batch["images"].double()))
+    top = max(g.abs().max().item() for g in step.grads.values())
+    zero = {n for n, g in step.grads.items() if g.abs().max().item() <= DP_ZERO_REL * top}
+    return zero, torch.cuda.max_memory_allocated()
+
+
+def dp_one_step(step, batch):
+    """One optimiser step (TRAIN_ACCUM micro-steps) -> (global losses, kernel
+    launches), the counts set to 0 first."""
+    zero_launch_counts()
+    losses = []
+    for _ in range(TRAIN_ACCUM):
+        m = step(batch)
+        if not m["finite"]:
+            fail(f"data-parallel step: non-finite loss {m['loss_total'].item()}")
+        losses.append(m["loss_total"].item())
+    torch.cuda.synchronize()
+    return losses, launch_counts()
+
+
+def dp_time(step, batch):
+    """The step's ms a micro-step (host clock, synchronised) over DP_TIMED
+    micro-steps in whole optimiser steps; across ranks also with the
+    gradient all-reduce left out (every micro-step under DDP's no_sync, the
+    ranks' weights parting from then on), the two ways alternating by
+    optimiser step. Then one traced optimiser step: the host's self time in
+    the collectives' calls (their dispatch: waits for another rank, and
+    gloo's work on its own threads, fall outside it)."""
+    from torch.autograd import DeviceType
+
+    ways = (False, True) if step.net is not step.model else (False,)
+    secs = dict.fromkeys(ways, 0.0)
+    for _ in range(DP_TIMED // TRAIN_ACCUM):
+        for no_sync in ways:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with step.net.no_sync() if no_sync else contextlib.nullcontext():
+                for _ in range(TRAIN_ACCUM):
+                    step(batch)
+            torch.cuda.synchronize()
+            secs[no_sync] += time.perf_counter() - t0
+    prof = traced(lambda: step(batch), TRAIN_ACCUM)
+    coll = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+            and any(k in e.key.lower() for k in COLLECTIVE_KEYS)]
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and any(k in e.key.lower() for k in ("nccl", "memcpy"))]
+    return {"ms_per_micro_step": secs[False] * 1e3 / DP_TIMED,
+            "no_sync_ms_per_micro_step": secs[True] * 1e3 / DP_TIMED if True in secs else None,
+            "collective_dispatch_ms": sum(e.self_cpu_time_total for e in coll) / 1e3,
+            "collective_calls": sum(e.count for e in coll),
+            "collective_ops": sorted({e.key for e in coll}),
+            "nccl_or_copy_device_ms": sum(e.self_device_time_total for e in dev) / 1e3}
+
+
+def dp_rank_step(rank, world, work):
+    """Main path 6 (a) in one rank, on its share of the bs-8 batch: one
+    optimiser step in bf16 (its global losses, launches, whether the ranks
+    hold the same bits), the skip with a NaN on the last rank, the times and
+    peak memory; then dp_float32_step, whose results rank 0 keeps."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    step = dp_train_step()
+    batch = shard_batch(dp_batch(), rank, world)
+    torch.cuda.reset_peak_memory_stats()
+    losses, counts = dp_one_step(step, batch)
+    same = bit_identical_across_ranks(step)
+    # a NaN pixel on the last rank: the global statistics carry it to every
+    # rank, every rank skips, nothing waits
+    bad = dict(batch, images=batch["images"].clone())
+    if rank == world - 1:
+        bad["images"][0, :, 100, 100] = float("nan")
+    bits = state_bits(step).clone()
+    m = step(bad)
+    torch.cuda.synchronize()
+    skip = {"finite": m["finite"], "kept": bool(torch.equal(state_bits(step), bits)),
+            "micro": step.micro}
+    del bits, bad
+    timing = dp_time(step, batch)
+    peak = torch.cuda.max_memory_allocated()
+    del step
+    torch.cuda.empty_cache()
+    f32 = dp_float32_step(batch)
+    if rank == 0:
+        torch.save(f32, os.path.join(work, "f32.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "launches": counts, "same_bits": same, "skip": skip,
+                   "timing": timing, "backend": torch.distributed.get_backend(),
+                   "peak_mem_bytes": peak}, f)
+
+
+def dp_rank_cli(rank, world, work, argv, options):
+    """Main path 6 (b) in one rank: tools/train.py's command line (Trainer.fit
+    of an epoch with its evaluations) in this rank's output directory, then
+    one more evaluate; its stats, steps and launches."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    zero_launch_counts()
+    trainer, _ = run_train_cli(argv + ["--output-dir", os.path.join(work, f"rank{rank}")]
+                               + options)
+    stats = trainer.evaluate()
+    torch.cuda.synchronize()
+    if rank == 0:
+        torch.save(trainer.evaluator.dets, os.path.join(work, "dets.pt"))
+    with open(os.path.join(work, f"cli{rank}.json"), "w") as f:
+        json.dump({"stats": stats, "micro_steps": trainer.step.step,
+                   "train_batches": len(trainer.train_loader),
+                   "val_batches": len(trainer.val_loader), "launches": launch_counts(),
+                   "ddp": trainer.step.net is not trainer.step.model}, f)
+
+
+def cli_rank(out_json, argv):
+    """Main path 6 (c): one rank of ``torch.distributed.run``, tools/train.py's
+    command line on argv; the backend, whether DDP wrapped the model, and
+    the launches go to ``out_json``."""
+    import torch.distributed as dist
+
+    zero_launch_counts()
+    try:
+        trainer = train_main(argv)
+        torch.cuda.synchronize()
+        with open(out_json, "w") as f:
+            json.dump({"backend": dist.get_backend(), "world": dist.get_world_size(),
+                       "ddp": trainer.step.net is not trainer.step.model,
+                       "micro_steps": trainer.step.step, "launches": launch_counts()}, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dp_compare(ref, got, zero, label):
+    """The 2-rank step against one process's: the bf16 losses, then the
+    float32 step's loss, gradients and updates, each leaf but those in
+    ``zero`` against its limit; fails past them. Returns the worst of each,
+    gradients and updates as a share of the leaf's limit."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+    want, have = ref["f32"], got["f32"]
+    if want["grads"].keys() != have["grads"].keys() or want["terms"].keys() != have["terms"].keys():
+        fail(f"{label}: the ranks' float32 step covers other leaves or terms than one process's")
+    f32 = abs(have["terms"]["loss_total"] - want["terms"]["loss_total"]) \
+        / abs(want["terms"]["loss_total"])
+    term = max((abs(have["terms"][k] - v) / max(abs(v), 1e-12), k)
+               for k, v in want["terms"].items())
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    held = [n for n in want["grads"] if n not in zero]
+    grad = sorted(((have["grads"][n] - want["grads"][n]).abs().max().item()
+                   / (DP_GRAD_REL * max(want["grads"][n].abs().max().item(), 1e-5 * top)), n)
+                  for n in held)[::-1]
+    upd = sorted(((have["update"][n] - want["update"][n]).norm().item()
+                  / max(DP_UPDATE_REL * want["update"][n].norm().item(), 1e-30), n)
+                 for n in held)[::-1]
+    print(f"[10] {label} against one process, one optimiser step on the bs-{TRAIN_BATCH} "
+          f"batch: bf16 losses {got['losses']} vs {ref['losses']} (worst relative {loss:.3e}, "
+          f"limit {DP_LOSS_REL}); float32 (TF32 off, accumulation 1) loss_total "
+          f"{have['terms']['loss_total']} vs {want['terms']['loss_total']}, relative "
+          f"{f32:.3e} (limit {DP_F32_REL}), of its {len(want['terms']) - 1} terms the most "
+          f"apart {term[1]} {term[0]:.3e} relative; {len(held)} of {len(want['grads'])} "
+          f"gradients held ({len(zero)} are 0 in float64), worst max|difference| "
+          + ", ".join(f"{e:.3e} at {n}" for e, n in grad[:3])
+          + f" of each leaf's limit ({DP_GRAD_REL} of its max|g|, at least 1e-5 of the "
+          f"largest); updates, worst L2 difference " + ", ".join(
+              f"{e:.3e} at {n}" for e, n in upd[:3])
+          + f" of the limit ({DP_UPDATE_REL} of the leaf's L2 norm)")
+    if not (loss <= DP_LOSS_REL and f32 <= DP_F32_REL and len(held) > 0.6 * len(want["grads"])
+            and grad[0][0] <= 1.0 and upd[0][0] <= 1.0):
+        fail(f"{label}: the 2-rank step differs from one process's")
+    return {"loss_rel": loss, "f32_loss_rel": f32, "f32_worst_term": term,
+            "grad_share_of_limit": grad[0][0], "update_share_of_limit": upd[0][0],
+            "worst_grad_leaf": grad[0][1], "worst_update_leaf": upd[0][1],
+            "leaves_held": len(held), "leaves": len(want["grads"])}
+
+
+def dp_step_path(card, ref, zero, backend, local_ranks):
+    """Main path 6 (a) or (d): the step in DP_RANKS ranks over ``backend``
+    on the cards ``local_ranks``, held against one process (``ref``)."""
+    label = f"{DP_RANKS} ranks over {backend} on cuda:{','.join(map(str, local_ranks))}"
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        t0 = time.perf_counter()
+        run_ranks(dp_rank_step, DP_RANKS, (work,), deadline_s=DP_DEADLINE_S, device="cuda",
+                  backend=backend, local_ranks=local_ranks)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(DP_RANKS)]
+        f32 = torch.load(os.path.join(work, "f32.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = {k: (6 * TRAIN_ACCUM if k == "msda_fwd" else 0) for k in KERNELS}
+    for r, g in enumerate(ranks):
+        print(f"[10] {label}, rank {r} ({g['backend']}): kernel launches {g['launches']} in "
+              f"{TRAIN_ACCUM} micro-steps; bits equal across the ranks {g['same_bits']}; "
+              f"NaN on rank {DP_RANKS - 1}: finite {g['skip']['finite']}, state kept "
+              f"{g['skip']['kept']}; peak memory {g['peak_mem_bytes'] / 2**30:.2f} GiB")
+        if g["launches"] != want:
+            fail(f"{label}: rank {r} launched {g['launches']}, expected {want}")
+        if not g["same_bits"] or g["skip"]["finite"] or not g["skip"]["kept"] \
+                or g["losses"] != ranks[0]["losses"]:
+            fail(f"{label}: rank {r}: ranks differ or the skip failed: {g}")
+    worst = dp_compare(ref, dict(ranks[0], f32=f32), zero, label)
+    tm = [g["timing"] for g in ranks]
+    ms = max(t["ms_per_micro_step"] for t in tm)
+    free = max(t["no_sync_ms_per_micro_step"] for t in tm)
+    step_ms = TRAIN_ACCUM * tm[0]["ms_per_micro_step"]
+    print(f"[10] {label}: {ms:.3f} ms a micro-step of the global bs {TRAIN_BATCH} (the slower "
+          f"rank; host clock, synchronised; ranks "
+          f"{[round(t['ms_per_micro_step'], 3) for t in tm]}) against one process's "
+          f"{ref['ms_per_micro_step']:.3f} ms; without the gradient all-reduce (no_sync) "
+          f"{free:.3f} ms, so the all-reduce takes {TRAIN_ACCUM * (ms - free):.3f} ms of an "
+          f"optimiser step ({100 * (ms - free) / ms:.1f}%, waits included); rank 0's host "
+          f"self time in the collectives' calls (dispatch; waits and gloo's threads outside "
+          f"it) {tm[0]['collective_dispatch_ms']:.3f} ms over {tm[0]['collective_calls']} calls "
+          f"in a traced optimiser step = {100 * tm[0]['collective_dispatch_ms'] / step_ms:.1f}% "
+          f"of its untraced one ({step_ms:.3f} ms); device time in NCCL kernels and copies "
+          f"{tm[0]['nccl_or_copy_device_ms']:.3f} ms; spawn and run {spawn_s:.1f} s; on {card}")
+    return ({k: sum(g["launches"][k] for g in ranks) for k in KERNELS},
+            {"label": label, "ms_per_micro_step": ms, "no_sync_ms_per_micro_step": free,
+             "grad_all_reduce_share": (ms - free) / ms,
+             "collective_dispatch_share": tm[0]["collective_dispatch_ms"] / step_ms,
+             "ranks": ranks, "compare": worst,
+             "one_process_ms_per_micro_step": ref["ms_per_micro_step"],
+             "one_process_peak_mem_bytes": ref["peak_mem_bytes"]})
+
+
+def dp_cli_paths(card, root):
+    """Main path 6 (b) and (c) on an 8-image synthetic COCO set: the command
+    line (Trainer.fit, one epoch, with its evaluations) in 2 ranks over gloo
+    on one card, held against one process's evaluation of rank 0's
+    checkpoint; then under ``torch.distributed.run --nproc_per_node 1`` on
+    NCCL. Returns the launch counts and the numbers."""
+    img_dir, ann = write_coco_set(os.path.join(root, "set"), DP_SET, 17,
+                                  np.random.default_rng(SEED + 10))
+    coco_l = ["--config", "configs/coco/detrpose_l.py", "--img-dir", img_dir, "--ann", ann,
+              "--val-img-dir", img_dir, "--val-ann", ann, "--epochs", "1", "--batch-size",
+              str(DP_SET)]
+    options = ["--options", f"training_params.eval_batch_size={DP_EVAL_BATCH}"]
+    work = os.path.join(root, "b")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    run_ranks(dp_rank_cli, DP_RANKS, (work, coco_l, options), deadline_s=DP_DEADLINE_S,
+              device="cuda", backend="gloo", local_ranks=[0] * DP_RANKS)
+    b_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(work, f"cli{r}.json"))) for r in range(DP_RANKS)]
+    written = {r: sorted(os.listdir(os.path.join(work, f"rank{r}"))) for r in range(DP_RANKS)}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        alone, one = run_train_cli(coco_l + ["--eval", "--resume",
+                                         os.path.join(work, "rank0", "checkpoint"),
+                                         "--output-dir", os.path.join(root, "one")] + options)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    for r, g in enumerate(ranks):
+        # 2 micro-steps a rank, then the fit's two evaluations and one more
+        want = 6 * (g["micro_steps"] + 3 * g["val_batches"])
+        print(f"[10] (b) Trainer.fit, {DP_RANKS} ranks over gloo, rank {r}: DDP {g['ddp']}, "
+              f"{g['micro_steps']} micro-steps, {g['val_batches']} val batches an evaluation, "
+              f"kernel launches {g['launches']}, AP {g['stats']['AP']}, AR {g['stats']['AR']}; "
+              f"wrote {written[r]}")
+        if not g["ddp"] or g["launches"]["msda_fwd"] != want or g["launches"]["msda_fwd"] == 0:
+            fail(f"(b) rank {r}: DDP {g['ddp']}, launches {g['launches']}, expected {want} of #1")
+    if not {"log.txt", "checkpoint", "config.yaml", "eval"} <= set(written[0]) or written[1]:
+        fail(f"(b) files: rank 0 wrote {written[0]}, rank 1 {written[1]}")
+    same = all(g["stats"] == ranks[0]["stats"] for g in ranks)
+    # the merged detections against one process's: AP is 0 from random weights
+    dets = torch.load(os.path.join(work, "dets.pt"), weights_only=False)
+    one_dets = alone.evaluator.dets
+    bits = dets.keys() == one_dets.keys() and all(
+        len(a) == len(b) and all(d["score"] == e["score"] and
+                                 np.array_equal(d["keypoints"], e["keypoints"])
+                                 for d, e in zip(a, b))
+        for a, b in ((dets[i], one_dets[i]) for i in one_dets))
+    err_l, err_k, n_edge = compare_detections(dets, one_dets, 1e-2)
+    print(f"[10] (b) the ranks' stats {'identical' if same else 'DIFFERENT'}; one process's "
+          f"--eval --resume of rank 0's checkpoint "
+          f"{'equal' if one == ranks[0]['stats'] else 'NOT equal'} ({len(one)} stats); the "
+          f"ranks' merged detections of {len(dets)} images "
+          f"{'bit for bit' if bits else 'NOT bit for bit'} one process's (score logits {err_l:.3e}, keypoints {err_k:.3e} of max|ref|, limit "
+          f"1e-2; {n_edge} at the boundary); {b_s:.1f} s for the spawn, the fit and the "
+          f"evaluations")
+    if not same or one != ranks[0]["stats"] or len(dets) != DP_SET \
+            or not (err_l <= 1e-2 and err_k <= 1e-2):
+        fail(f"(b) stats: ranks {[g['stats'] for g in ranks]}, one process {one}")
+
+    # (c) the command line as users launch it, one rank on NCCL
+    out_json = os.path.join(root, "c.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()),
+           os.path.abspath(__file__), "--cli-rank", out_json, "--"] + coco_l + [
+           "--output-dir", os.path.join(root, "c")] + options
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=DP_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"(c) torch.distributed.run did not end within {DP_DEADLINE_S} s")
+    c_s = time.perf_counter() - t0
+    print("\n".join("    | " + line for line in log.splitlines()[-6:]))
+    if proc.returncode != 0:
+        fail(f"(c) torch.distributed.run exited {proc.returncode}")
+    c = json.load(open(out_json))
+    with open(os.path.join(root, "c", "log.txt")) as f:
+        c_log = [json.loads(line) for line in f]
+    print(f"[10] (c) torch.distributed.run --nproc_per_node 1: backend {c['backend']}, world "
+          f"{c['world']}, DDP {c['ddp']}, {c['micro_steps']} micro-steps, kernel launches "
+          f"{c['launches']}, log.txt epoch 0 train_loss_total {c_log[0]['train_loss_total']:.4f} "
+          f"AP {c_log[0]['AP']}; {c_s:.1f} s")
+    if c["backend"] != "nccl" or not c["ddp"] or c["launches"]["msda_fwd"] == 0 \
+            or len(c_log) != 1 or not np.isfinite(c_log[0]["train_loss_total"]):
+        fail(f"(c) {c}, log {c_log}")
+    counts = {k: sum(g["launches"][k] for g in ranks) + c["launches"][k] for k in KERNELS}
+    return counts, {"b_s": b_s, "b_stats": ranks[0]["stats"], "c_s": c_s,
+                    "c_launches": c["launches"]}
+
+
+def data_parallel_path(card):
+    """Main path 6 (phase 10): the L step in 2 ranks, then the Trainer and
+    the command line in ranks; returns the launch counts and the numbers."""
+    step, batch = dp_train_step(), dp_batch()
+    torch.cuda.reset_peak_memory_stats()
+    losses, _ = dp_one_step(step, batch)
+    timing = dp_time(step, batch)
+    ref = {"losses": losses, "ms_per_micro_step": timing["ms_per_micro_step"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del step
+    torch.cuda.empty_cache()
+    ref["f32"] = dp_float32_step(batch)
+    torch.cuda.empty_cache()
+    zero, f64_peak = dp_exact_zero_leaves(batch)
+    print(f"[10] one process, one optimiser step of the bs-{TRAIN_BATCH} batch: bf16 losses "
+          f"{losses}, {timing['ms_per_micro_step']:.3f} ms a micro-step, peak memory "
+          f"{ref['peak_mem_bytes'] / 2**30:.2f} GiB; float32 loss_total "
+          f"{ref['f32']['terms']['loss_total']}; float64 (plain version, peak "
+          f"{f64_peak / 2**30:.2f} GiB): {len(zero)} leaves with a gradient below "
+          f"{DP_ZERO_REL:g} of the largest: " + ", ".join(sorted(zero)[:4])
+          + f"{', ...' if len(zero) > 4 else ''}; on {card}")
+    del batch
+    torch.cuda.empty_cache()
+    # the counts of the ranks' main path, read in the ranks
+    counts, numbers = dp_step_path(card, ref, zero, "gloo", [0] * DP_RANKS)
+    numbers["one_process_losses"], numbers["exact_zero_leaves"] = losses, sorted(zero)
+    runs = [f"(a) {numbers['label']}"]
+    if torch.cuda.device_count() >= DP_RANKS:
+        c2, n2 = dp_step_path(card, ref, zero, "nccl", list(range(DP_RANKS)))
+        counts = {k: counts[k] + c2[k] for k in KERNELS}
+        numbers["nccl"] = n2
+        runs.append(f"(d) {n2['label']}")
+    else:
+        print(f"[10] (d) not run: {torch.cuda.device_count()} card; NCCL refuses two ranks on one")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        c3, numbers["cli"] = dp_cli_paths(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs += ["(b) Trainer.fit in 2 ranks over gloo", "(c) torch.distributed.run, 1 rank, NCCL"]
+    counts = {k: counts[k] + c3[k] for k in KERNELS}
+    print(f"[10] main path 6 ran: {'; '.join(runs)}; kernel #1 launches {counts['msda_fwd']}")
+    return counts, numbers
+
+
 def main():
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -1506,7 +2081,12 @@ def main():
     counts_trainer, trainer_numbers = trainer_path(card)
     total = {k: total[k] + counts_trainer[k] for k in KERNELS}
 
-    # ---- 10. report
+    # ---- 10. main path 6: data parallelism over ranks
+    torch.cuda.empty_cache()
+    counts_dp, dp_numbers = data_parallel_path(card)
+    total = {k: total[k] + counts_dp[k] for k in KERNELS}
+
+    # ---- 11. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
                "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
@@ -1538,7 +2118,7 @@ def main():
                                 "msda_op_train_shapes_ms": {"forward": bwd_alone[0],
                                                             "backward": bwd_alone[1]},
                                 "matcher_ms": matcher_ms},
-                      "trainer": trainer_numbers}))
+                      "trainer": trainer_numbers, "data_parallel": dp_numbers}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],
@@ -1552,4 +2132,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    adopt_orphans()
+    try:
+        if sys.argv[1:2] == ["--cli-rank"]:     # a rank of main path 6 (c)
+            cli_rank(sys.argv[2], sys.argv[4:])
+        else:
+            main()
+    finally:
+        for pid, cmd in stop_children().items():
+            print(f"chip_smoke: stopped process {pid} that had not ended: {cmd[:200]}",
+                  file=sys.stderr)

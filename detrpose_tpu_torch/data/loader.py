@@ -16,11 +16,16 @@ it, and the pool is closed and joined within a deadline (``_close_pool``).
 The JAX loader terminates the pool while its task handler may be parked in
 the gate, which can hang.
 
+With more than one process the batches leave their CDN block unbuilt:
+``batch["make_cdn"](max_known=...)`` builds it once the largest GT count
+over the ranks is known, so every rank has the same group count.
+
 This module imports no torch at import time: the pool's worker processes
 import it to load items, and need only numpy and PIL.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import multiprocessing
 import os
@@ -313,10 +318,17 @@ class KeypointLoader:
                 # CDN label flips are independent of the model's head classes
                 # (the reference hard-codes num_classes=80 in prepare_for_cdn,
                 # transformer.py:1271); CDNConfig carries that default.
-                dn = build_cdn(batch["targets"], self.num_queries, self.K,
-                               images.shape[1:3], nprng, CDNConfig())
-                if dn is not None:
-                    batch["dn"] = dn
+                make = functools.partial(build_cdn, batch["targets"], self.num_queries,
+                                         self.K, images.shape[1:3], nprng, CDNConfig())
+                if self.process_count > 1:
+                    # the group count is the global batch's, which the
+                    # consumer learns from the other ranks before it builds
+                    # (train/cdn.py::batch_cdn), on this RNG stream in batch order
+                    batch["make_cdn"] = make
+                else:
+                    dn = make()
+                    if dn is not None:
+                        batch["dn"] = dn
             yield batch
 
 

@@ -13,6 +13,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.dist import gather_across_ranks, world
+
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
     """Activation registry (reference: hybrid_encoder.py:19-54); GELU is the
@@ -46,6 +48,14 @@ class BatchNorm(nn.Module):
     folds in the unbiased one, so the update is corrected after the call:
     with ``rv`` the variance before and ``rv'`` after it, and ``n`` values a
     channel, the biased update is ``((1 - 0.1) rv + (n-1) rv') / n``.
+
+    Across data-parallel ranks (a process group of more than one rank) the
+    statistics are those of the global batch, as under JAX's pjit: each
+    rank's per-channel count, mean and sum of squared deviations cross the
+    ranks in an all-gather with a gradient, so each rank's input gradient is
+    that of the global loss, and the running variance takes the biased
+    global variance (``torch.nn.SyncBatchNorm`` would fold in the unbiased
+    one).
     """
 
     momentum = 0.1
@@ -62,6 +72,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
+        if world() > 1:
+            return self._sync_forward(x)
         # the call moves a copy (autograd keeps it); the buffer takes the
         # corrected update
         moved = self.running_var.clone()
@@ -71,6 +83,29 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_var.mul_(1.0 - self.momentum).add_(moved, alpha=n - 1).div_(n)
         return y
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on the global batch's statistics (in float32 at least):
+        each rank's count, mean and sum of squared deviations, gathered and
+        combined as Chan et al.'s parallel variance, which keeps the
+        precision that E[x^2] - E[x]^2 loses where it cancels."""
+        C = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean_r = xf.mean((0, 2, 3))
+        m2_r = (xf - mean_r[:, None, None]).square().sum((0, 2, 3))
+        count = xf.new_full((1,), x.numel() // C)
+        parts = gather_across_ranks(torch.cat([mean_r, m2_r, count]))
+        means, m2s, counts = parts[:, :C], parts[:, C:2 * C], parts[:, 2 * C:]
+        n = counts.sum()
+        mean = (counts * means).sum(0) / n
+        var = (m2s.sum(0) + (counts * (means - mean).square()).sum(0)) / n
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = xf * scale[:, None, None] + (self.bias - mean * scale)[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        return y.to(x.dtype)
 
 
 class LearnableAffineBlock(nn.Module):

@@ -1,4 +1,3 @@
-"""The training step (single device)."""
-from .train_step import TrainStep, make_train_step
-
-__all__ = ["TrainStep", "make_train_step"]
+"""The training step (``train_step.py``) and its data parallelism over ranks
+(``dist.py``, ``mesh.py``). The package imports none of them: the models
+and the criterion import ``dist.py``, and the step imports them."""

@@ -16,9 +16,24 @@ reverts); the EMA advances on optimiser steps only.
 
 Each phase runs inside a profiler range named in ``PHASES`` (forward,
 criterion, backward, update), so a trace splits a step's host time by phase.
+
+Across data-parallel ranks (a process group; ``parallel/mesh.py``) the model
+runs inside ``DistributedDataParallel``, and the step keeps JAX's semantics
+over the global batch. The criterion's normalisers and the BatchNorm
+statistics are global, so each rank's loss is its share of the global loss;
+it is scaled by the world size before the backward, so DDP's gradient
+average is the gradient of the global loss. One all-reduce after the
+criterion sums every rank's loss terms (the logged metrics are the global
+batch's, as the reference's ``reduce_dict``) and their finite flags: every
+rank skips together, or a rank that skipped the backward would leave the
+others waiting in DDP's gradient all-reduce. Micro-batches before the last
+of an accumulation run under ``no_sync``, so the gradients are all-reduced
+once an optimiser step. The clip, AdamW and the EMA run on every rank on the
+same reduced gradients.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -28,6 +43,8 @@ from ..models.layers import BatchNorm
 from ..train.criterion import criterion as criterion_fn
 from ..train.optim import EMA, TrainOptimizer
 from ..utils.device import resolve_device
+from .dist import all_reduce_counts, world
+from .mesh import data_parallel
 
 PHASES = ("train_step.forward", "train_step.criterion", "train_step.backward",
           "train_step.update")
@@ -37,8 +54,11 @@ class TrainStep:
     """``step(batch) -> metrics``. ``batch``: "images" (B, 3, H, W) in [0, 1],
     "targets" {labels, keypoints, area, valid, ...} as tensors, and optionally
     "dn", the output of ``train/cdn.py::cdn_to_device``, all on the model's
-    device. ``metrics``: "loss_total" and every weighted loss term (0-d
-    tensors), "finite" (bool) and "step" (int)."""
+    device; across ranks each rank's share of the global batch. ``metrics``:
+    "loss_total" and every weighted loss term (0-d tensors, the global
+    batch's), "finite" (bool) and "step" (int). ``model`` stays the plain
+    module (the EMA, checkpoints and evaluation use it); ``net`` is what the
+    forward calls, ``model`` inside DDP under a process group."""
 
     def __init__(self, model: nn.Module, optimizer: TrainOptimizer, num_body_points: int,
                  num_classes: int = 2, weight_dict: Optional[Dict[str, float]] = None,
@@ -47,6 +67,7 @@ class TrainStep:
                  losses: Sequence[str] = ("vfl", "keypoints"),
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16):
         self.model = model.train()
+        self.net = data_parallel(self.model)
         self.optimizer = optimizer
         self.num_body_points, self.num_classes = num_body_points, num_classes
         self.weight_dict, self.matcher_backend = weight_dict, matcher_backend
@@ -70,20 +91,33 @@ class TrainStep:
         stats = self._bn_stats()
         saved = [t.clone() for t in stats]
         amp = self.compute_dtype not in (None, torch.float32)
+        n_ranks = world()
+        # gradients are all-reduced in the backward of the micro-batch that
+        # completes the accumulation, the only one outside no_sync
+        last = self.micro + 1 == self.optimizer.grad_accum_steps
+        sync = (self.net.no_sync() if self.net is not self.model and not last
+                else contextlib.nullcontext())
         forward, crit, backward, update = (torch.profiler.record_function(n) for n in PHASES)
-        with forward, torch.autocast(images.device.type, dtype=self.compute_dtype,
-                                     enabled=amp):
-            out = self.model(images, dn)
-        with crit:
-            terms = criterion_fn(out, targets, self.num_body_points, self.num_classes,
-                                 weight_dict=self.weight_dict,
-                                 matcher_backend=self.matcher_backend, losses=self.losses)
-            total = torch.stack([v.float() for v in terms.values()]).sum()
-            finite = bool(torch.isfinite(total))
-        self.step += 1
+        with sync:
+            with forward, torch.autocast(images.device.type, dtype=self.compute_dtype,
+                                         enabled=amp):
+                out = self.net(images, dn)
+            with crit:
+                terms = criterion_fn(out, targets, self.num_body_points, self.num_classes,
+                                     weight_dict=self.weight_dict,
+                                     matcher_backend=self.matcher_backend,
+                                     losses=self.losses)
+                total = torch.stack([v.float() for v in terms.values()]).sum()
+                logged = torch.stack([total.detach()] + [v.detach().float()
+                                                         for v in terms.values()]
+                                     + [torch.isfinite(total).float()])
+                logged = all_reduce_counts(logged)
+                finite = bool(logged[-1] == n_ranks)
+            self.step += 1
+            if finite:
+                with backward:
+                    (total * n_ranks).backward()
         if finite:
-            with backward:
-                total.backward()
             self.micro += 1
             if self.micro == self.optimizer.grad_accum_steps:
                 with update:
@@ -94,8 +128,8 @@ class TrainStep:
         else:
             with torch.no_grad():
                 torch._foreach_copy_(stats, saved)
-        return {"loss_total": total.detach(), "finite": finite, "step": self.step,
-                **{k: v.detach() for k, v in terms.items()}}
+        return {"loss_total": logged[0], "finite": finite, "step": self.step,
+                **dict(zip(terms, logged[1:-1]))}
 
 
 def make_train_step(model: nn.Module, optimizer: TrainOptimizer, num_body_points: int,

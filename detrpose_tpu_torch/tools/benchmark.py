@@ -37,7 +37,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..configs import build_model, model_config
 from ..models import postprocess
 from ..ops.cuda import KERNELS
-from ..parallel import make_train_step
+from ..parallel.train_step import make_train_step
 from ..train.cdn import build_cdn, cdn_to_device
 from ..train.optim import make_optimizer
 from ..utils.device import resolve_device

@@ -13,6 +13,16 @@ override it. It runs on the CUDA device, training under bf16 autocast;
 
   python -m detrpose_tpu_torch.tools.train --config configs/coco/detrpose_l.py \\
       --val-img-dir ... --val-ann ... --eval --resume output/detrpose_l/best
+
+Data-parallel training runs one process a rank, each on its own card,
+started by torchrun (the reference's launch); ``total_batch_size`` is the
+global batch, each rank loading total / accumulation / ranks images a
+micro-step, and rank 0 writes the outputs:
+
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m detrpose_tpu_torch.tools.train --config configs/coco/detrpose_l.py ...
+
+With ``--device cpu`` the ranks run on the CPU and talk over gloo.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from ..core import LazyConfig
 from ..data.coco import CocoKeypointDataset
 from ..data.loader import KeypointLoader, Prefetcher
 from ..data.transforms import EvalTransforms, TrainTransforms
+from ..parallel.dist import init_distributed
 from ..train.trainer import Trainer
 from ..utils.device import resolve_device
 
@@ -73,6 +84,7 @@ def main(argv=None) -> Trainer:
     evaluation)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    rank, world = init_distributed(dev)
     cfg = LazyConfig.load(args.config)
     LazyConfig.apply_overrides(cfg, args.options)
     tp = cfg.training_params
@@ -103,8 +115,9 @@ def main(argv=None) -> Trainer:
                 use_crop=tp.get("use_crop", False),
                 crop_mode="clamp" if K == 14 else "zero"))
         # with accumulation the loader yields micro-batches of total / accum
-        # (reference engine.py:43-60 splits each batch)
-        micro_bs = max(tp.get("total_batch_size", 16) // grad_accum, 1)
+        # (reference engine.py:43-60 splits each batch), a rank's share of
+        # them (JAX train.py:80-90)
+        micro_bs = max(tp.get("total_batch_size", 16) // grad_accum // world, 1)
         train_loader = Prefetcher(KeypointLoader(
             tds, micro_bs, K, train=True,
             base_size=tp.get("base_size", 640),
@@ -112,13 +125,15 @@ def main(argv=None) -> Trainer:
             multiscale_stop_epoch=tp.get("multiscale_stop_epoch", 48),
             num_queries=mcfg.num_queries,
             # reference: DataLoader(num_workers=4), include/dataset.py:48
-            num_workers=tp.get("num_workers", 4)))
+            num_workers=tp.get("num_workers", 4),
+            process_index=rank, process_count=world))
     if args.val_img_dir and args.val_ann:
         vds = CocoKeypointDataset(
             args.val_img_dir, args.val_ann, K, train=False,
             transforms=EvalTransforms(out_size=tp.get("base_size", 640)))
         val_loader = KeypointLoader(vds, tp.get("eval_batch_size", 32), K, train=False,
-                                    with_cdn=False, drop_last=False)
+                                    with_cdn=False, drop_last=False,
+                                    process_index=rank, process_count=world)
         val_gts = val_ground_truth(vds, K)
         crowd_index = vds.crowd_index
         eval_use_area = crowd_index is None  # CrowdPose normalizes by box area
@@ -150,12 +165,13 @@ def main(argv=None) -> Trainer:
         # None: uint8 staging of train images under bf16 (see Trainer)
         stage_uint8=tp.get("stage_uint8", None),
         compute_dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32,
-        device=dev,
+        n_devices=world, device=dev,
     )
     try:
         # snapshot the resolved config into the run directory (reference
         # logs the config text to TB and pickles args, trainer.py:130-134)
-        LazyConfig.save(dict(cfg), os.path.join(trainer.output_dir, "config.yaml"))
+        if trainer.main:
+            LazyConfig.save(dict(cfg), os.path.join(trainer.output_dir, "config.yaml"))
         if args.resume:
             trainer.resume(args.resume)
         if args.ckpt_pth:
@@ -163,7 +179,9 @@ def main(argv=None) -> Trainer:
         if args.test:
             trainer.test()
         elif args.eval:
-            print(json.dumps(trainer.evaluate()), flush=True)
+            stats = trainer.evaluate()
+            if trainer.main:
+                print(json.dumps(stats), flush=True)
         else:
             trainer.fit()
     finally:
@@ -172,4 +190,8 @@ def main(argv=None) -> Trainer:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import keypoint_sigmas
+from ..parallel.dist import all_reduce_counts
 from ..utils.device import resolve_device
 
 
@@ -64,6 +65,20 @@ def _ref_normalize_pm1(v: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     return v / np.maximum(norm, eps)
 
 
+def _known_num(targets: Dict[str, np.ndarray], cfg: CDNConfig) -> np.ndarray:
+    """The GTs of each image that get noised copies (B,): at most pad_cap//2
+    (one pos + one neg each must fit in a single group); extra GTs are still
+    supervised by the main criterion, they just don't get DN queries."""
+    return np.minimum(targets["valid"].astype(bool).sum(1), cfg.pad_cap // 2)
+
+
+def known_max(targets: Dict[str, np.ndarray], cfg: Optional[CDNConfig] = None) -> int:
+    """The largest GT count of the batch that ``build_cdn`` sizes its
+    groups for (0: the batch gets no CDN block)."""
+    known = _known_num(targets, cfg or CDNConfig())
+    return int(known.max()) if known.size else 0
+
+
 def build_cdn(
     targets: Dict[str, np.ndarray],
     num_queries: int,
@@ -71,6 +86,7 @@ def build_cdn(
     img_hw,
     rng: np.random.Generator,
     cfg: Optional[CDNConfig] = None,
+    max_known: Optional[int] = None,
 ) -> Optional[Dict[str, np.ndarray]]:
     """Build denoising queries for one batch.
 
@@ -78,6 +94,9 @@ def build_cdn(
       targets: padded batch targets — labels (B, G), boxes (B, G, 4) cxcywh
         normalized, keypoints (B, G, 3K) xyxy..vv, area (B, G), valid (B, G).
       img_hw: (H, W) of the batch images.
+      max_known: the GT count the group structure is sized for, at least
+        this batch's ``known_max``; across data-parallel ranks the largest
+        over the ranks, so every rank has the global batch's groups.
 
     Returns dict (or None if no GT in the batch):
       labels       (B, pad_cap) int32 — noised class ids for label_enc lookup
@@ -89,14 +108,13 @@ def build_cdn(
     cfg = cfg or CDNConfig()
     K = num_keypoints
     labels = targets["labels"]
-    valid = targets["valid"].astype(bool)
     B, G = labels.shape
-    known_num = valid.sum(1)  # (B,)
-    # At most pad_cap//2 GTs per image get noised copies (one pos + one neg
-    # each must fit in a single group); extra GTs are still supervised by the
-    # main criterion, they just don't get DN queries.
-    known_num = np.minimum(known_num, cfg.pad_cap // 2)
-    max_known = int(known_num.max()) if B else 0
+    known_num = _known_num(targets, cfg)
+    if max_known is None:
+        max_known = int(known_num.max()) if B else 0
+    elif max_known < (int(known_num.max()) if B else 0):
+        raise ValueError(f"build_cdn: max_known {max_known} is below the batch's "
+                         f"{int(known_num.max())}")
     if max_known == 0:
         return None
 
@@ -227,6 +245,18 @@ def build_cdn(
             "active_mask": active,
         },
     }
+
+
+def batch_cdn(batch: Dict, device: torch.device | str = "cuda") -> Optional[Dict]:
+    """The CDN block of a loader batch (None without one). With one process
+    the loader built it; across ranks it left ``make_cdn``, which builds it
+    here with the global batch's group count: the largest ``known_max``
+    over the ranks (an all-reduce on ``device``), so every rank has the
+    groups one process has under JAX and the DN normalisers agree."""
+    if "make_cdn" not in batch:
+        return batch.get("dn")
+    local = torch.tensor([known_max(batch["targets"])], device=resolve_device(device))
+    return batch["make_cdn"](max_known=int(all_reduce_counts(local, "max").item()))
 
 
 def cdn_to_device(dn: Optional[Dict], device: torch.device | str = "cuda"

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.oks import oks as pair_oks
+from ..parallel.dist import all_reduce_counts
 from .matcher import hungarian_match
 
 DEFAULT_WEIGHTS = {"loss_vfl": 2.0, "loss_keypoints": 10.0, "loss_oks": 4.0}
@@ -129,13 +130,15 @@ def loss_mal(outputs, targets, assign_q, num_boxes, K, num_classes=2,
 
 
 def loss_local(outputs, targets, go_g, go_valid, K, T=5.0, num_pos_neg=None,
-               query_mask=None):
+               query_mask=None, counts=None):
     """FGL/DDF distillation of the FDR corner distributions against the final
     layer's (teacher) distributions (criterion.py:137-198).
 
     ``num_pos_neg``: the reference caches num_pos / num_neg from the last
     real branch and reuses them for the DN branches (criterion.py:185-192).
-    ``query_mask`` (nq,) drops the inert DN slots from the means and counts."""
+    ``query_mask`` (nq,) drops the inert DN slots from the means and counts.
+    ``counts``: the positive and negative elements the means divide by
+    (this batch's by default; the global batch's across ranks)."""
     if "pred_corners" not in outputs or "teacher_corners" not in outputs:
         return {}
     pred = outputs["pred_corners"].float()                    # (B, nq, K, 2*(R+1))
@@ -168,8 +171,9 @@ def loss_local(outputs, targets, go_g, go_valid, K, T=5.0, num_pos_neg=None,
         num_neg = torch.sqrt(neg.sum() * batch_scale)
     else:
         num_pos, num_neg = num_pos_neg
-    l_pos = torch.where(pos, kl, 0.0).sum() / pos.sum().clamp(min=1)
-    l_neg = torch.where(neg, kl, 0.0).sum() / neg.sum().clamp(min=1)
+    n_pos, n_neg = (pos.sum(), neg.sum()) if counts is None else counts
+    l_pos = torch.where(pos, kl, 0.0).sum() / n_pos.clamp(min=1)
+    l_neg = torch.where(neg, kl, 0.0).sum() / n_neg.clamp(min=1)
     return {"loss_dfl": (l_pos * num_pos + l_neg * num_neg) / (num_pos + num_neg + 1e-12)}
 
 
@@ -225,7 +229,15 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
               losses: Sequence[str] = ("vfl", "keypoints")) -> Dict[str, torch.Tensor]:
     """The training loss over the final, aux, pre, interm and DN outputs of
     ``DETRPose`` in training -> {term: weighted loss}; the total is the sum.
-    ``targets`` may carry ``dn_match`` from the CDN batch."""
+    ``targets`` may carry ``dn_match`` from the CDN batch.
+
+    Across data-parallel ranks every normaliser is the global batch's, as
+    under JAX's pjit, where a sum over the sharded batch is the all-reduce
+    (the reference all-reduces num_boxes, criterion.py:317-323): the GT
+    counts, the DN counts, and DFL's batch size and element counts, summed
+    over the ranks in one all-reduce; and the matcher's auction scale, the
+    largest over the ranks. Each rank's terms are then its share
+    of the global loss, and their sum over the ranks is the global loss."""
     K = num_body_points
     wd = dict(DEFAULT_WEIGHTS if weight_dict is None else weight_dict)
     cc, ck, co = matcher_weights
@@ -240,11 +252,28 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
     branches = [outputs] + list(aux_list) + [outputs["aux_pre_outputs"]] + list(interm_list)
     st_logits = torch.stack([b["pred_logits"] for b in branches])
     st_kpts = torch.stack([b["pred_keypoints"][..., :2 * K] for b in branches])
+    # the auction's eps follows the largest cost of the global batch
     assign_all = hungarian_match(st_logits, st_kpts, targets, K, cost_class=cc,
-                                 cost_keypoints=ck, cost_oks=co, backend=matcher_backend)
+                                 cost_keypoints=ck, cost_oks=co, backend=matcher_backend,
+                                 reduce_scale=lambda s: all_reduce_counts(s, "max"))
     go_g, go_valid = union_indices(assign_all, valid, nq)
-    num_boxes = valid.sum().float().clamp(min=1.0)
-    num_boxes_go = go_valid.sum().float().clamp(min=1.0)
+    B, n_el = valid.shape[0], 2 * K      # DFL counts 2K elements a query
+    dn = None
+    if "dn_aux_outputs" in outputs and "dn_match" in targets:
+        match = targets["dn_match"]
+        dn_q, dn_valid, dn_g = match["query_idx"], match["valid"].bool(), match["gt_idx"]
+        nq_dn = outputs["dn_aux_outputs"][0]["pred_logits"].shape[1]
+        dn_active = match.get("active_mask")
+        dn_go_g, dn_go_valid = union_indices(dn_q[None], dn_valid, nq_dn)
+        act = torch.ones_like(dn_go_valid) if dn_active is None else dn_active[None]
+        dn = [dn_valid.sum(), (dn_go_valid & act).sum(), (~dn_go_valid & act).sum()]
+
+    # every count a normaliser divides by, over the global batch
+    counts = all_reduce_counts(torch.stack([
+        torch.as_tensor(c, device=valid.device).float()
+        for c in [valid.sum(), go_valid.sum(), B] + (dn or [])]))
+    num_boxes = counts[0].clamp(min=1.0)
+    num_boxes_go = counts[1].clamp(min=1.0)
 
     suffixes = ([""] + [f"_{i}" for i in range(len(aux_list))] + ["_pre"]
                 + [f"_enc_{i}" for i in range(len(interm_list))])
@@ -260,29 +289,26 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
     # teacher_corners, so loss_local gives nothing there, as the reference)
     real_num_pos_neg = None
     if "local" in losses:
-        n_pos_el = go_valid.sum() * (2 * K)
-        n_tot_el = go_valid.numel() * (2 * K)
-        batch_scale = 8.0 / go_valid.shape[0]
+        n_pos_el = counts[1] * n_el
+        n_neg_el = counts[2] * (nq * n_el) - n_pos_el
+        batch_scale = 8.0 / counts[2]
         real_num_pos_neg = (torch.sqrt(n_pos_el * batch_scale),
-                            torch.sqrt((n_tot_el - n_pos_el) * batch_scale))
+                            torch.sqrt(n_neg_el * batch_scale))
         for sfx, o in [("", outputs)] + [(f"_{i}", a) for i, a in enumerate(aux_list)]:
-            for k, v in loss_local(o, targets, go_g, go_valid, K).items():
+            for k, v in loss_local(o, targets, go_g, go_valid, K,
+                                   num_pos_neg=real_num_pos_neg,
+                                   counts=(n_pos_el, n_neg_el)).items():
                 if k in wd:
                     out_losses[k + sfx] = v * wd[k]
 
     # DN branch: fabricated positive indices from the CDN layout
-    if "dn_aux_outputs" in outputs and "dn_match" in targets:
-        match = targets["dn_match"]
-        dn_q, dn_valid, dn_g = match["query_idx"], match["valid"].bool(), match["gt_idx"]
+    if dn is not None:
         nb_dn = num_boxes * match["num_group"]
         # targets reordered so column m is GT gt_idx[m]
         dn_targets = {"labels": _at_gts(targets["labels"], dn_g),
                       "keypoints": _at_gts(targets["keypoints"], dn_g),
                       "area": _at_gts(targets["area"], dn_g), "valid": dn_valid}
-        nq_dn = outputs["dn_aux_outputs"][0]["pred_logits"].shape[1]
-        dn_active = match.get("active_mask")
-        dn_go_g, dn_go_valid = union_indices(dn_q[None], dn_valid, nq_dn)
-        nb_dn_go = dn_valid.sum().float().clamp(min=1.0)
+        nb_dn_go = counts[3].clamp(min=1.0)
 
         dn_branches = list(outputs["dn_aux_outputs"])
         dn_suffixes = [f"_dn_{i}" for i in range(len(dn_branches))]
@@ -306,8 +332,8 @@ def criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
         if "local" in losses:
             for sfx, o in zip(dn_suffixes, dn_branches):
                 for k, v in loss_local(o, dn_targets, dn_go_g, dn_go_valid, K,
-                                       num_pos_neg=real_num_pos_neg,
-                                       query_mask=dn_active).items():
+                                       num_pos_neg=real_num_pos_neg, query_mask=dn_active,
+                                       counts=(counts[4] * n_el, counts[5] * n_el)).items():
                     if k in wd:
                         out_losses[k + sfx] = v * wd[k]
     return out_losses

@@ -20,7 +20,7 @@ valid).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -62,7 +62,9 @@ def match_cost(pred_logits: torch.Tensor, pred_keypoints: torch.Tensor,
 
 
 @torch.no_grad()
-def auction_assign(cost: torch.Tensor, valid: torch.Tensor, iters: int = 128) -> torch.Tensor:
+def auction_assign(cost: torch.Tensor, valid: torch.Tensor, iters: int = 128,
+                   reduce_scale: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """Min-cost assignment by a Bertsekas auction (JAX matcher.py:83-155).
 
     Columns (GTs) bid for rows (queries): each unassigned column bids its
@@ -73,6 +75,9 @@ def auction_assign(cost: torch.Tensor, valid: torch.Tensor, iters: int = 128) ->
 
     Args:
       cost: (..., B, nq, G); valid: (B, G) or (..., B, G) bool.
+      reduce_scale: maps the batch's scales (...,) to those of the problem
+        it is part of (the criterion passes the max over data-parallel ranks,
+        so eps is the global batch's, as under JAX's pjit); None keeps them.
     Returns:
       (..., B, G) int64, the query per GT (distinct within an image).
     """
@@ -81,7 +86,10 @@ def auction_assign(cost: torch.Tensor, valid: torch.Tensor, iters: int = 128) ->
     valid = valid.bool().expand(tuple(lead) + (B, G))
     value = torch.where(valid[..., None], value, -BIG)
     finite = torch.where(value.abs() < BIG / 2, value, 0.0).abs()
-    scale = finite.flatten(-3).amax(-1).clamp(min=1.0)               # (...,)
+    scale = finite.flatten(-3).amax(-1)                              # (...,)
+    if reduce_scale is not None:
+        scale = reduce_scale(scale)
+    scale = scale.clamp(min=1.0)
     eps = (1e-3 * scale)[..., None, None].expand(tuple(lead) + (B, 1)).reshape(-1, 1)
 
     value = value.reshape(-1, G, nq)
@@ -136,9 +144,9 @@ def scipy_assign(cost: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def hungarian_match(pred_logits, pred_keypoints, targets, num_body_points,
                     cost_class=2.0, cost_keypoints=10.0, cost_oks=4.0,
-                    focal_alpha=0.25, backend="auction") -> torch.Tensor:
+                    focal_alpha=0.25, backend="auction", reduce_scale=None) -> torch.Tensor:
     """The full matcher: cost, then assignment ("auction" or "scipy") ->
-    (..., B, G) int64."""
+    (..., B, G) int64. ``reduce_scale`` as ``auction_assign``'s."""
     if backend not in ("auction", "scipy"):
         raise ValueError(f"unknown matcher backend {backend!r}")
     with torch.no_grad():
@@ -146,4 +154,4 @@ def hungarian_match(pred_logits, pred_keypoints, targets, num_body_points,
                        cost_class, cost_keypoints, cost_oks, focal_alpha)
     if backend == "scipy":
         return scipy_assign(c, targets["valid"])
-    return auction_assign(c, targets["valid"])
+    return auction_assign(c, targets["valid"], reduce_scale=reduce_scale)

@@ -1,12 +1,18 @@
-"""Trainer: the training and evaluation lifecycle on one device.
+"""Trainer: the training and evaluation lifecycle, on one device or one
+rank of a data-parallel process group.
 
 Counterpart of ``detrpose_tpu/train/trainer.py``. Reference semantics:
 src/solver/trainer.py (fit epoch loop :172-309, eval :311-341, resume
 :343-379) and src/solver/engine.py (train_one_epoch :15-117, evaluate
 :120-176). On the port:
-  * one device (the CUDA device unless the caller asks for the CPU); the
-    JAX mesh and multi-process paths are not ported (``n_devices`` > 1
-    raises);
+  * one device a process (the CUDA device unless the caller asks for the
+    CPU); across ranks, one process a rank under ``torch.distributed``
+    (``parallel/dist.py``), the model in ``DistributedDataParallel``, where
+    JAX shards the global batch over a mesh (``n_devices`` is the world
+    size). Each rank's loaders hold its shard; a CDN block is built on every
+    rank with the global batch's group count; evaluation merges the ranks'
+    detections and summarises on every rank; log.txt, TensorBoard, the eval
+    dump, results.json and the checkpoints are written by rank 0 alone;
   * the step is ``parallel/train_step.py::TrainStep``: float32 master
     weights, the forward under autocast in ``compute_dtype`` (bf16 by
     default, as JAX's bf16 models), the optimiser of
@@ -34,8 +40,9 @@ import torch
 
 from ..data.evaluator import KeypointEvaluator
 from ..models.postprocess import postprocess
+from ..parallel.dist import barrier, gather_lists, is_main_process, merge_detections, world
 from ..parallel.train_step import make_train_step
-from ..train.cdn import cdn_to_device
+from ..train.cdn import batch_cdn, cdn_to_device
 from ..train.optim import make_optimizer, multistep_schedule, resolve_backbone_freeze
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
@@ -79,9 +86,12 @@ class Trainer:
         compute_dtype: Optional[torch.dtype] = torch.bfloat16,
         device: torch.device | str = "cuda",
     ):
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("the port's Trainer runs on one device; "
-                                      "multi-GPU training is not ported")
+        if n_devices is not None and n_devices != world():
+            raise RuntimeError(
+                f"n_devices={n_devices} needs a process group of {n_devices} ranks, one "
+                f"process a rank (this process sees {world()}): launch with `python -m "
+                f"torch.distributed.run --nproc_per_node {n_devices} ...`, whose ranks "
+                f"join it in parallel/dist.py::init_distributed")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model_cfg
@@ -94,7 +104,9 @@ class Trainer:
         self.epochs = epochs
         self.use_ema = use_ema
         self.save_interval = save_interval
-        self.log = log_fn
+        self.main = is_main_process()
+        # the reference prints on the main process only (dist_utils.py:21-35)
+        self.log = log_fn if self.main else (lambda *a, **k: None)
         self.compute_dtype = compute_dtype
         os.makedirs(output_dir, exist_ok=True)
 
@@ -140,7 +152,7 @@ class Trainer:
         # TensorBoard scalars (reference: trainer.py:130-134, engine.py:99-107)
         # when the tensorboard package is there, as JAX's optional writer
         self._tb = None
-        if tensorboard:
+        if tensorboard and self.main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -177,8 +189,9 @@ class Trainer:
         out = {"images": self._stage_images(batch["images"]),
                "targets": {k: torch.from_numpy(np.asarray(v)).to(self.device)
                            for k, v in batch["targets"].items()}}
-        if "dn" in batch:
-            out["dn"] = cdn_to_device(batch["dn"], self.device)
+        dn = batch_cdn(batch, self.device)
+        if dn is not None:
+            out["dn"] = cdn_to_device(dn, self.device)
         return out
 
     # ----------------------------------------------------------------- train
@@ -274,6 +287,10 @@ class Trainer:
                 ev.update(int(img_id), scores[b], kpts[b])
             n_img += len(ids)
         t_forward = time.perf_counter() - t0
+        # every rank merges the ranks' detections and summarises (reference
+        # coco_eval.synchronize_between_processes, :93-105); the shards are
+        # wrap-padded to one length, an image evaluated twice counts once
+        ev.dets = merge_detections(ev.dets)
         ev.accumulate()
         stats = ev.summarize()
         self.evaluator = ev
@@ -285,10 +302,11 @@ class Trainer:
         self.log("eval: " + json.dumps({k: round(v, 4) for k, v in stats.items()}))
         # per-epoch eval dump (reference trainer.py:296-304 saves the
         # COCOeval state as eval/latest.pth): precision/recall and stats
-        eval_dir = os.path.join(self.output_dir, "eval")
-        os.makedirs(eval_dir, exist_ok=True)
-        np.savez(os.path.join(eval_dir, "latest.npz"), precision=ev.precision,
-                 recall=ev.recall, **{k: np.float64(v) for k, v in stats.items()})
+        if self.main:
+            eval_dir = os.path.join(self.output_dir, "eval")
+            os.makedirs(eval_dir, exist_ok=True)
+            np.savez(os.path.join(eval_dir, "latest.npz"), precision=ev.precision,
+                     recall=ev.recall, **{k: np.float64(v) for k, v in stats.items()})
         return stats
 
     # ------------------------------------------------------------------ test
@@ -311,15 +329,20 @@ class Trainer:
                         "keypoints": [round(float(v), 2) for v in k.reshape(-1)],
                         "score": float(s),
                     })
+        # every rank's detections, an image evaluated on two ranks once;
+        # rank 0 writes (reference save_on_master, dist_utils.py:38)
+        results = gather_lists(results, dedup_key=lambda r: r["image_id"])
         out_path = out_path or os.path.join(self.output_dir, "results.json")
-        with open(out_path, "w") as f:
-            json.dump(results, f)
+        if self.main:
+            with open(out_path, "w") as f:
+                json.dump(results, f)
         self.log(f"wrote {len(results)} detections to {out_path}")
         return out_path
 
     # ------------------------------------------------------------------- fit
     def _save(self, name: str, epoch: int):
-        save_checkpoint(os.path.join(self.output_dir, name), self.step, epoch)
+        if self.main:
+            save_checkpoint(os.path.join(self.output_dir, name), self.step, epoch)
 
     def fit(self) -> float:
         log_path = os.path.join(self.output_dir, "log.txt")
@@ -361,20 +384,22 @@ class Trainer:
                 self._save("best_ema", epoch)
             if new_best_reg:
                 self._save("best_regular", epoch)
-            with open(log_path, "a") as f:
-                f.write(json.dumps({
-                    "epoch": epoch,
-                    **{f"train_{k}": v for k, v in train_stats.items()},
-                    **stats,
-                    **{f"regular_{k}": v for k, v in stats_reg.items()},
-                    **self.best_holder.summary(),
-                }) + "\n")
+            if self.main:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps({
+                        "epoch": epoch,
+                        **{f"train_{k}": v for k, v in train_stats.items()},
+                        **stats,
+                        **{f"regular_{k}": v for k, v in stats_reg.items()},
+                        **self.best_holder.summary(),
+                    }) + "\n")
             if ap > self.best_ap:
                 self.best_ap = ap
         return self.best_ap
 
     # ---------------------------------------------------------------- resume
     def resume(self, path: str):
+        barrier()   # a checkpoint rank 0 is writing is read once it is whole
         epoch = restore_checkpoint(path, self.step)
         self.start_epoch = epoch + 1
         self.log(f"resumed from {path} at epoch {epoch}")

@@ -415,7 +415,7 @@ def _train_setup(dev, backend, remat=False, res=320):
     """N at ``res`` px, batch 2, float32, one CDN batch: the model in training
     and its step (accumulation 2, so the first micro-batch keeps .grad)."""
     from detrpose_tpu_torch.configs import build_model, model_config
-    from detrpose_tpu_torch.parallel import make_train_step
+    from detrpose_tpu_torch.parallel.train_step import make_train_step
     from detrpose_tpu_torch.tools.benchmark import synthetic_train_batch
     from detrpose_tpu_torch.train.optim import make_optimizer
 
@@ -550,3 +550,27 @@ def test_n_trainer_evaluate_auto_matches_gather(cuda, exact_f32, tmp_path):
         for a, g in zip(da[img], dg[img], strict=True):
             assert abs(a["score"] - g["score"]) <= 1e-4
             assert np.abs(a["keypoints"] - g["keypoints"]).max() <= 1e-4 * ref
+
+
+@pytest.mark.gpu
+def test_two_rank_step_on_one_card(cuda, exact_f32, exact_zero_leaves, tmp_path):
+    # two ranks on the card over gloo (tests/torch_dist_ranks.py), one image
+    # each of _train_setup's batch: through kernel #1 ("auto", 3 launches a
+    # rank) and through the plain version, the same global loss and
+    # all-reduced gradients (but for those that are 0 in exact arithmetic)
+    import torch_dist_ranks
+
+    from detrpose_tpu_torch.parallel.dist import run_ranks
+
+    model, _, batch = _train_setup(torch.device("cpu"), "gather")
+    torch.save({"sd": model.state_dict(), "batch": batch}, tmp_path / "inputs.pt")
+    run_ranks(torch_dist_ranks.card_step, 2, (str(tmp_path),), deadline_s=300.0,
+              device="cuda", backend="gloo", local_ranks=[0, 0])
+    got = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for g in got:
+        assert g["auto"]["launches"] == 3 and g["gather"]["launches"] == 0
+        loss = g["gather"]["loss"]
+        assert abs(g["auto"]["loss"] - loss) <= 1e-4 * abs(loss) + 1e-7
+        _compare_grads(g["auto"]["grads"], g["gather"]["grads"], exact_zero_leaves)
+    a, b = (g["auto"]["grads"] for g in got)
+    assert all(torch.equal(a[k], v) for k, v in b.items())

@@ -115,6 +115,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
         Trainer(model, model_config("n"), output_dir=str(tmp_path), tensorboard=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--config", os.path.join(REPO, "configs/coco/detrpose_n.py")])
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         Trainer(model, model_config("n"), output_dir=str(tmp_path), tensorboard=False,
                 device="cpu", n_devices=2)

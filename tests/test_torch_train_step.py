@@ -41,7 +41,7 @@ from detrpose_tpu.train.optim import resolve_backbone_freeze as jax_resolve_back
 
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.models.layers import BatchNorm
-from detrpose_tpu_torch.parallel import make_train_step
+from detrpose_tpu_torch.parallel.train_step import make_train_step
 from detrpose_tpu_torch.tools.benchmark import bench_train_step
 from detrpose_tpu_torch.train.cdn import build_cdn, cdn_to_device
 from detrpose_tpu_torch.train.optim import (EMA, label_parameters, make_optimizer,
