@@ -16,7 +16,9 @@ Phases (any failure exits non-zero before the last line is printed):
      (output and gradients) also at the L train shapes of 640 px and of
      main path 5's multi-scale extremes, 480 and 800 px, and at main path
      6's micro-batches (4 images at 640 px; 2 and 4 at 480 and 800 px; the
-     eval shapes at 4), float32 (1e-5 of max|ref|) and bf16 values (1% of
+     eval shapes at 4), at main path 7's L eval shapes (the grid branch's 16
+     points, 16 heads of 16 channels, 32 heads of 8), float32 (1e-5 of
+     max|ref|) and bf16 values (1% of
      max|ref|); kernels #1 and #2 also at
      shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
      tiles), at 4 levels, and on a value map that starts 2 elements into its
@@ -125,7 +127,30 @@ Phases (any failure exits non-zero before the last line is printed):
      more, (a) over NCCL across two. Gloo between two ranks of one card
      exercises the collectives' host path, not NVLink or NCCL: no scaling
      figure. A rank that fails or misses its deadline fails the phase;
- 11. print the kernel table, the card line and, last, the result line.
+ 11. main path 7, the reference's model variants (DETRPose-L at full width
+     and depth, seeded weights with the constant leaves perturbed as in
+     phase 4): (a) bs 2, 640 px, float32, TF32 off, each of modulation,
+     region sampling (k 3), global context, grouped offsets (G 2 with
+     modulation; G 4, 8-channel heads), grid attention (16 points with
+     offsets, fused; 4 points unfused), the FastKAN FFN, energy refinement
+     (3 steps, by the gradient and by the raw energy) and the ResNet-50
+     backbone, through "auto" (kernel #1) and "pallas" (kernel #2) against
+     "gather" within 1e-4 on logits and normalized keypoints, with the exact
+     launches of the chosen kernel (6 a forward, 12 with the grid branch,
+     6 + steps with the raw energy, 6 + 2 x steps with its gradient) and
+     none of the other; "pallas" with grad_energy must raise (no gradient);
+     (b) one L training micro-step (bs 2, float32, one CDN batch,
+     deterministic algorithms) per family (grouped with modulation, grid
+     with offsets, FastKAN, energy by the gradient in 3 steps, ResNet-50)
+     through "auto" against "gather" as in phase 5, a leaf past 1e-3 held
+     to a float64 step of the plain version; (c) each
+     configuration's forward + postprocess at bs 32, 640 px, bf16, beside
+     the default L's, and kernel #1 at the grid branch's 16 points and at
+     16 and 8-channel heads beside its bound; (d) the command line over a
+     folder of 4 synthetic JPEGs (a process of its own) and a 4-frame mp4
+     (or, without cv2, its image path up to the detections, said on a line
+     of its own), and bench_data at bs 1 and 32 over synthetic JPEGs;
+ 12. print the kernel table, the card line and, last, the result line.
 
 Whether it passes or fails, the script ends only after every process it
 started has: it adopts its descendants' orphans (a rank's data worker
@@ -137,6 +162,7 @@ import contextlib
 import ctypes
 import gc
 import glob
+import importlib.util
 import io
 import itertools
 import json
@@ -157,6 +183,7 @@ from PIL import Image, ImageDraw
 
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.data.evaluator import KeypointEvaluator
+from detrpose_tpu_torch.models import MSDeformAttn, postprocess
 from detrpose_tpu_torch.models.layers import BatchNorm
 from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_deform_attn_fast,
                                          ms_deform_attn_tpose, msda_ablate, msda_colsin,
@@ -180,7 +207,8 @@ from detrpose_tpu_torch.parallel.train_step import PHASES, make_train_step
 from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda_v2, pallas_bench
 from detrpose_tpu_torch.tools.benchmark import launch_counts, synthetic_train_batch
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
-from detrpose_tpu_torch.tools.infer import build_pipeline
+from detrpose_tpu_torch.tools.infer import build_pipeline, detections
+from detrpose_tpu_torch.tools.infer import main as infer_main
 from detrpose_tpu_torch.tools.train import main as train_main
 from detrpose_tpu_torch.train.matcher import hungarian_match
 from detrpose_tpu_torch.train.optim import label_parameters, make_optimizer
@@ -201,6 +229,11 @@ TEST_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4,
 # no multiple of 16 bytes); three points take the generic point loop of #1
 # and #2; four levels
 ODD_SHAPES = dict(B=1, Lq=37, nH=3, dh=12, nP=3, levels=((7, 9), (5, 3)))
+# main path 7's new shapes of kernels #1 and #2 at the L eval geometry:
+# the grid branch's 16 points a level (the generic point loop), grouped
+# offsets' 16 heads of 16 channels (G=2) and 32 heads of 8 (G=4)
+VARIANT_SHAPES = {"grid_nP16": dict(L_SHAPES, nP=16), "heads16x16": dict(L_SHAPES, nH=16, dh=16),
+                  "heads32x8": dict(L_SHAPES, nH=32, dh=8)}
 NL4_SHAPES = dict(B=2, Lq=135, nH=8, dh=32, nP=4, levels=((16, 16), (8, 8), (4, 4), (2, 2)))
 # the L training micro-batch of the reference recipe (configs/_base.py: 16
 # images an optimiser step in 2 micro-batches), and main path 4's length
@@ -503,7 +536,8 @@ def check_kernels(g):
     kernel."""
     errs = {}
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("train", TRAIN_SHAPES),
-                       *TRAIN_MS_SHAPES.items(), *DP_SHAPES.items(), ("N", N_SHAPES),
+                       *TRAIN_MS_SHAPES.items(), *DP_SHAPES.items(),
+                       *VARIANT_SHAPES.items(), ("N", N_SHAPES),
                        ("X", X_SHAPES), ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES),
                        ("offset", TEST_SHAPES)):
         for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
@@ -530,8 +564,8 @@ def check_kernels(g):
                       f"max|ref|)")
                 if not err <= rel * scale:
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
-                if (label in ("L", "train") or label in TRAIN_MS_SHAPES or label in DP_SHAPES) \
-                        and dtype == torch.bfloat16:
+                if (label in ("L", "train") or label in TRAIN_MS_SHAPES or label in DP_SHAPES
+                        or label in VARIANT_SHAPES) and dtype == torch.bfloat16:
                     errs[name] = max(err, errs.get(name, 0.0))
     # the per-point kernels take the packed bf16 values the TPU ops cast to
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("odd", ODD_SHAPES),
@@ -1818,6 +1852,322 @@ def data_parallel_path(card):
     return counts, numbers
 
 
+# ---- main path 7: the reference's model variants -----------------------
+# phase 11's configurations of DETRPose-L (JAX decoder.py:138-280, 391-413,
+# 743-823; models/resnet.py), each run under kernel #1 ("auto") and #2
+# ("pallas") against "gather"
+VARIANTS = {
+    "modulation": dict(use_modulation=True),
+    "region3": dict(use_region_sampling=True, region_kernel_size=3),
+    "global": dict(use_global_context=True),
+    "grouped2_mod": dict(use_grouped_offsets=True, num_groups=2, use_modulation=True),
+    "grouped4": dict(use_grouped_offsets=True, num_groups=4),
+    "grid16_offsets": dict(use_grid_attention=True, grid_num_points=16, use_grid_offsets=True),
+    "grid4_unfused": dict(use_grid_attention=True, grid_num_points=4, use_grid_fusion=False),
+    "kan": dict(use_kan=True, kan_grid=3),
+    "energy_grad": dict(use_energy_refinement=True, energy_steps=3, grad_energy=True),
+    "energy_raw": dict(use_energy_refinement=True, energy_steps=3, grad_energy=False),
+    "resnet50": dict(backbone_name="resnet50"),
+}
+# one training step per family (phase 11 b); energy refinement's three
+# differentiated steps make its regulariser live
+TRAIN_VARIANTS = {
+    "grouped2_mod": VARIANTS["grouped2_mod"],
+    "grid16_offsets": VARIANTS["grid16_offsets"],
+    "kan": VARIANTS["kan"],
+    "energy_grad": dict(VARIANTS["energy_grad"], energy_decrease_weight=0.01),
+    "resnet50": VARIANTS["resnet50"],
+}
+
+
+def variant_launches(flags):
+    """Kernel launches of one L forward: one MSDA call a decoder layer (6),
+    a second one a layer with the grid branch (12); energy refinement adds
+    one a step (the energy layer's), two with grad_energy (the energy and its
+    gradient's forward; the op's backward runs the plain version)."""
+    layers = model_config("l", **flags).num_decoder_layers
+    n = layers * (2 if flags.get("use_grid_attention") else 1)
+    if flags.get("use_energy_refinement"):
+        n += flags["energy_steps"] * (2 if flags.get("grad_energy") else 1)
+    return n
+
+
+def set_backend(model, backend):
+    for m in model.modules():
+        if isinstance(m, MSDeformAttn):
+            m.msda_backend = backend
+
+
+def variant_model(flags, backend="gather"):
+    """DETRPose-L with ``flags`` from the seed, the constant leaves perturbed
+    and the selection head scaled by 50 (as phase 4)."""
+    gb = torch.Generator().manual_seed(SEED)
+    model = build_model(model_config("l", msda_backend=backend, **flags), device="cuda",
+                        generator=gb)
+    perturb_constant_leaves(model, gb)
+    return model
+
+
+def check_variant(name, flags, x):
+    """Phase 11 (a) for one configuration (float32, TF32 off): the forward
+    through "gather", "auto" and "pallas", the kernels' outputs within 1e-4
+    of the plain version's, exact launch counts; returns the model (backend
+    "auto") and the launches of the kernels' runs."""
+    model = variant_model(flags)
+    n = variant_launches(flags)
+    outs, total = {}, {k: 0 for k in KERNELS}
+    for backend in ("gather", "auto", "pallas"):
+        set_backend(model, backend)
+        zero_launch_counts()
+        if backend == "pallas" and flags.get("grad_energy"):
+            # kernel #2 has no gradient, and the descent takes one
+            try:
+                with torch.no_grad():
+                    model(x)
+            except RuntimeError as e:
+                if "no gradient" not in str(e):
+                    raise
+                print(f"[11] {name}: msda_backend='pallas' raised as it must: {e}")
+                continue
+            fail(f"{name}: msda_backend='pallas' with grad_energy did not raise")
+        with torch.no_grad():
+            outs[backend] = model(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        key = {"auto": "msda_fwd", "pallas": "msda_perquery"}.get(backend)
+        want = {k: (n if k == key else 0) for k in KERNELS}
+        if counts != want:
+            fail(f"{name} L forward with msda_backend={backend!r} launched {counts}, "
+                 f"expected {want}")
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    for backend in outs:
+        if backend != "gather":
+            compare_outputs(f"11 {name} {backend} vs gather", outs[backend], outs["gather"],
+                            1e-4)
+    print(f"[11] {name} L bs2 640 f32: {n} launches of the chosen kernel a forward")
+    set_backend(model, "auto")
+    return model, total
+
+
+def serve_ms(model, x, ts):
+    """Forward + postprocess at bs 32, bf16 (bench_size's protocol)."""
+    with torch.no_grad():
+        return cuda_time_ms(lambda: postprocess(model(x), ts), iters=10)
+
+
+def check_train_variant(name, flags, batch):
+    """Phase 11 (b) for one family: one L micro-step (bs 2, float32, one CDN
+    batch, deterministic algorithms) through "auto" and through "gather" on
+    the same weights, as phase 5; returns kernel #1's launches."""
+    model = variant_model(flags).train()
+    runs, launched, peak = {}, {k: 0 for k in KERNELS}, {}
+    n = variant_launches(flags)
+    for backend in ("auto", "gather"):
+        set_backend(model, backend)
+        step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
+                               compute_dtype=torch.float32, use_ema=False)
+        zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: (n if backend == "auto" and k == "msda_fwd" else 0) for k in KERNELS}
+        if counts != want:
+            fail(f"{name} L train micro-step with msda_backend={backend!r} launched {counts}, "
+                 f"expected {want}")
+        peak[backend] = torch.cuda.max_memory_allocated() / 2**30
+        launched = {k: launched[k] + counts[k] for k in KERNELS}
+        grads = {p_name: p.grad.detach().clone() for p_name, p in model.named_parameters()
+                 if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        runs[backend] = (metrics, grads, branch_assignments(model, batch)[2])
+        del step
+    (ma, ga, aa), (mg, gg, ag) = runs["auto"], runs["gather"]
+    if not torch.equal(aa, ag):
+        fail(f"{name} train step: the matcher's assignments differ between the backends")
+    terms = [k for k, v in mg.items() if torch.is_tensor(v)]
+    if name.startswith("energy") and "energy_reg_loss" not in terms:
+        fail(f"{name} train step: no energy_reg_loss among the logged terms")
+    worst_loss = max(abs(ma[k].item() - mg[k].item()) / max(abs(mg[k].item()), 1e-12)
+                     for k in terms)
+    if ga.keys() != gg.keys():
+        fail(f"{name} train step: the backends give gradients to other leaves")
+    # each leaf within 1e-3 of its max|g|; a leaf whose gradient is 0 up to
+    # rounding (below 1e-5 of the largest |g|: a shift that the encoder's
+    # batch-statistics norms cancel) must stay below 1e-5 of the largest in
+    # both runs: the energy step's second derivative sums the same terms in
+    # another order, which moves such a leaf by its rounding
+    top = max(g.abs().max().item() for g in gg.values())
+    zero = sorted(k for k, g in gg.items() if g.abs().max().item() < 1e-5 * top)
+    errs = sorted((((ga[k] - g).abs().max().item() / g.abs().max().item(), k)
+                   for k, g in gg.items() if k not in zero), reverse=True)
+    zero_err = max([(ga[k] - gg[k]).abs().max().item() / top for k in zero] + [0.0])
+    print(f"[11] {name} L train micro-step bs2 640 f32, auto vs gather: loss "
+          f"{mg['loss_total'].item():.6f}, {aa.numel()} assignments equal, {len(terms)} loss "
+          f"terms, worst relative difference {worst_loss:.3e} (limit 1e-4); {len(gg)} "
+          f"gradients, worst max|diff| / max|g| {errs[0][0]:.3e} at {errs[0][1]} (limit "
+          f"1e-3); {len(zero)} leaves 0 up to rounding, worst max|diff| {zero_err:.3e} of the "
+          f"largest |g| {top:.3e} (limit 1e-5); kernel #1 {n} launches; peak memory "
+          f"{peak['auto']:.2f} / {peak['gather']:.2f} GiB")
+    if not worst_loss <= 1e-4:
+        fail(f"{name} train step: the loss terms differ between 'auto' and 'gather'")
+    if zero_err > 1e-5:
+        fail(f"{name} train step: the gradients differ between 'auto' and 'gather'")
+    off = [k for e, k in errs if e > 1e-3]
+    if off:
+        # an ill-conditioned float32 gradient: held to a float64 step of the
+        # plain version, no farther from it than twice the plain version's
+        # own float32 gradient is (or 1e-3 of its max|g|)
+        model.double()
+        set_backend(model, "gather")
+        step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
+                               compute_dtype=torch.float32, use_ema=False)
+        step(dict(batch, images=batch["images"].double()))
+        gw = {k: model.get_parameter(k).grad for k in off}
+        worst = []
+        for k in off:
+            e_auto = (ga[k].double() - gw[k]).abs().max().item()
+            e_plain = (gg[k].double() - gw[k]).abs().max().item()
+            worst.append((e_auto / max(1e-3 * gw[k].abs().max().item(), 2 * e_plain), k,
+                          e_auto, e_plain))
+        worst.sort(reverse=True)
+        print(f"[11] {name}: {len(off)} leaves past 1e-3 held to a float64 plain step: worst "
+              f"max|auto - f64| / max(1e-3 max|g|, 2 max|gather - f64|) {worst[0][0]:.3f} at "
+              f"{worst[0][1]} (auto {worst[0][2]:.3e}, gather {worst[0][3]:.3e} off float64; "
+              f"limit 1)")
+        if worst[0][0] > 1.0:
+            fail(f"{name} train step: the gradients differ between 'auto' and 'gather'")
+    return launched
+
+
+def cli_and_bench_data(card, root):
+    """Phase 11 (d): the command line over a folder of 4 JPEGs (a process of
+    its own) and a 4-frame mp4, then bench_data at bs 1 and 32; returns the
+    results."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    orbax = importlib.util.find_spec("orbax") is not None
+    print(f"[11] cv2 on this machine: {cv2.__version__ if cv2 else 'not installed'}; orbax "
+          f"(the JAX package's checkpoint format): {'found' if orbax else 'not installed'}")
+    src, out = os.path.join(root, "jpegs"), os.path.join(root, "out")
+    os.makedirs(src)
+    benchmark.write_synthetic_jpegs(src, 4, seed=SEED)
+    result = {"cv2": cv2.__version__ if cv2 else None, "orbax": orbax}
+    if cv2 is not None:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "detrpose_tpu_torch.tools.infer", "--size",
+                            "l", "--input", src, "--output", out], capture_output=True,
+                           text=True, timeout=300)
+        lines = r.stdout.strip().splitlines()
+        print("\n".join(f"[11] infer: {line}" for line in lines))
+        if r.returncode != 0 or len(lines) != 4 or sorted(os.listdir(out)) != sorted(
+                os.listdir(src)):
+            fail(f"the command line over a folder: rc {r.returncode}, {r.stderr[-2000:]}")
+        result["folder_s"] = time.perf_counter() - t0
+        video, video_out = os.path.join(root, "in.mp4"), os.path.join(root, "out.mp4")
+        vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 5, (640, 480))
+        for i in range(4):
+            vw.write(np.random.default_rng(i).integers(0, 256, (480, 640, 3), np.uint8))
+        vw.release()
+        t0 = time.perf_counter()
+        infer_main(["--size", "l", "--input", video, "--output", video_out])
+        cap = cv2.VideoCapture(video_out)
+        frames = 0
+        while cap.read()[0]:
+            frames += 1
+        cap.release()
+        if frames != 4:
+            fail(f"the command line over a 4-frame mp4 wrote {frames} frames")
+        result["video_s"] = time.perf_counter() - t0
+        print(f"[11] the command line: a folder of 4 JPEGs in {result['folder_s']:.2f} s (a "
+              f"process of its own, model build included), a 4-frame mp4 in "
+              f"{result['video_s']:.2f} s, {frames} frames written; on {card}")
+    else:
+        print("[11] without cv2 the command line cannot draw or read video: its image "
+              "path runs through PIL decoding up to its detections instead")
+        run = build_pipeline("l", device="cuda")
+        for f in sorted(os.listdir(src)):
+            scores, kpts = detections(run, np.array(Image.open(os.path.join(src, f))))
+            if scores.shape != (60,) or not (np.isfinite(scores).all()
+                                             and np.isfinite(kpts).all()):
+                fail(f"the command line's image path on {f}: bad detections")
+        print("[11] the command line's image path gave finite detections for 4 JPEGs")
+    for b in (1, 32):
+        res = benchmark.bench_data("l", None, b)
+        print(f"[11] bench_data('l', None, {b}) over {res['images']} synthetic JPEGs: "
+              f"latency_ms {res['latency_ms']}, fastest_ms {res['fastest_ms']}, "
+              f"{res['images_per_sec']} images/s ({res['basis']}); on {card}")
+        result[f"bench_data_bs{b}"] = res
+    return result
+
+
+def variants_path(card, gen, g):
+    """Main path 7 (phase 11): returns the launches and the numbers."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.rand(2, 3, 640, 640, generator=gen).cuda()
+    xb = torch.rand(32, 3, 640, 640, generator=gen).cuda().to(torch.bfloat16)
+    ts = torch.full((32, 2), 640.0, device="cuda")
+    total = {k: 0 for k in KERNELS}
+    serve = {}
+    for name, flags in VARIANTS.items():
+        model, launched = check_variant(name, flags, x)
+        total = {k: total[k] + launched[k] for k in KERNELS}
+        model.to(torch.bfloat16)
+        serve[name] = serve_ms(model, xb, ts)
+        del model
+        torch.cuda.empty_cache()
+    default = variant_model({}, "auto").to(torch.bfloat16)
+    serve["default"] = serve_ms(default, xb, ts)
+    del default
+    torch.cuda.empty_cache()
+    for name, ms in serve.items():
+        print(f"[11] L {name} forward+postprocess bs32 640 bf16: {ms:.3f} ms/batch "
+              f"({ms / serve['default']:.3f}x the default L's {serve['default']:.3f}); on {card}")
+
+    batch = synthetic_train_batch(2, 640, 17, 60, "cuda", seed=SEED)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, flags in TRAIN_VARIANTS.items():
+            launched = check_train_variant(name, flags, batch)
+            total = {k: total[k] + launched[k] for k in KERNELS}
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+    # kernel #1 at the shapes the variants give it, beside its bound
+    kernel_ms = {}
+    for label, shp in VARIANT_SHAPES.items():
+        value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **shp)
+        out_bytes = value.numel() // value.shape[1] * loc.shape[1] * value.element_size()
+        bound = msda_bound_ms(nbytes(value, loc, aw) + out_bytes, 10 * aw.numel() * shp["dh"])
+        ms = cuda_time_ms(lambda: msda_forward(value, levels, loc, aw), iters=50)
+        kernel_ms[label] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"[11] msda_fwd at {label} (B{shp['B']} Lq{shp['Lq']} nH{shp['nH']} dh{shp['dh']} "
+              f"nP{shp['nP']}, L levels, bf16 values): {ms:.4f} ms/call, bound {bound[0]:.4f} "
+              f"ms ({bound[1]}); on {card}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    zero_launch_counts()
+    with tempfile.TemporaryDirectory() as root:
+        tools_out = cli_and_bench_data(card, root)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["msda_fwd"] == 0:
+        fail("the command line and bench_data never launched kernel msda_fwd")
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    seconds = time.perf_counter() - t_phase
+    print(f"[11] main path 7: kernel launches {total}; {seconds:.1f} s")
+    return total, {"serve_ms": serve, "kernel_ms": kernel_ms, "tools": tools_out,
+                   "seconds": seconds}
+
+
 def main():
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -2086,7 +2436,12 @@ def main():
     counts_dp, dp_numbers = data_parallel_path(card)
     total = {k: total[k] + counts_dp[k] for k in KERNELS}
 
-    # ---- 11. report
+    # ---- 11. main path 7: the model variants, the command line, bench_data
+    torch.cuda.empty_cache()
+    counts_variants7, variant_numbers = variants_path(card, gen, g)
+    total = {k: total[k] + counts_variants7[k] for k in KERNELS}
+
+    # ---- 12. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
                "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
@@ -2118,7 +2473,8 @@ def main():
                                 "msda_op_train_shapes_ms": {"forward": bwd_alone[0],
                                                             "backward": bwd_alone[1]},
                                 "matcher_ms": matcher_ms},
-                      "trainer": trainer_numbers, "data_parallel": dp_numbers}))
+                      "trainer": trainer_numbers, "data_parallel": dp_numbers,
+                      "variants": variant_numbers}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

@@ -13,7 +13,9 @@ from typing import Optional, Sequence
 import torch
 
 from ..models import DETRPose, HGNetv2, HybridEncoder, Transformer
+from ..models.decoder import MSDA_BRANCHES
 from ..models.detrpose import init_parameters
+from ..models.resnet import ResNet
 from ..utils.device import resolve_device
 
 
@@ -43,7 +45,7 @@ class ModelConfig:
     dec_n_points: int = 4
     reg_max: int = 32
     reg_scale: float = 4.0
-    # experimental decoder branches of the reference; accepted, not ported
+    # experimental decoder branches of the reference (models/decoder.py)
     use_modulation: bool = False
     use_region_sampling: bool = False
     region_kernel_size: int = 1
@@ -98,10 +100,6 @@ _SIZE_OVERRIDES = {
     ),
 }
 
-_EXPERIMENTAL = ("use_modulation", "use_region_sampling", "use_global_context",
-                 "use_grouped_offsets", "use_grid_attention", "use_kan",
-                 "use_energy_refinement")
-
 
 def model_config(size: str = "l", num_body_points: int = 17, **overrides) -> ModelConfig:
     cfg = ModelConfig(size=size, num_body_points=num_body_points)
@@ -130,13 +128,11 @@ def build_model(cfg: ModelConfig, deploy: bool = False,
     form's state_dict.
     """
     dev = resolve_device(device)
-    flags = [f for f in _EXPERIMENTAL if getattr(cfg, f)]
-    if flags:
-        raise NotImplementedError(f"experimental branches not ported: {flags}")
     if cfg.backbone_name.startswith("resnet"):
-        raise NotImplementedError("the ResNet backbone is not ported")
-    backbone = HGNetv2(arch=cfg.backbone_name, use_lab=cfg.use_lab,
-                       return_idx=tuple(cfg.return_idx), remat=cfg.remat)
+        backbone = ResNet(depth=int(cfg.backbone_name[len("resnet"):]), return_idx=(1, 2, 3))
+    else:
+        backbone = HGNetv2(arch=cfg.backbone_name, use_lab=cfg.use_lab,
+                           return_idx=tuple(cfg.return_idx), remat=cfg.remat)
     encoder = HybridEncoder(
         in_channels=tuple(cfg.in_channels), n_levels=cfg.n_levels, hidden_dim=cfg.hidden_dim,
         dim_feedforward=cfg.enc_dim_feedforward,
@@ -149,7 +145,11 @@ def build_model(cfg: ModelConfig, deploy: bool = False,
         num_feature_levels=cfg.n_levels, dec_n_points=cfg.dec_n_points,
         num_classes=cfg.num_classes, num_body_points=cfg.num_body_points,
         reg_max=cfg.reg_max, reg_scale=cfg.reg_scale, msda_backend=cfg.msda_backend,
-        remat=cfg.remat)
+        remat=cfg.remat, use_kan=cfg.use_kan, kan_grid=cfg.kan_grid,
+        use_energy_refinement=cfg.use_energy_refinement, energy_steps=cfg.energy_steps,
+        energy_step_size=cfg.energy_step_size, grad_energy=cfg.grad_energy,
+        energy_decrease_weight=cfg.energy_decrease_weight,
+        **{k: getattr(cfg, k) for k in MSDA_BRANCHES})
     model = DETRPose(backbone, encoder, transformer)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

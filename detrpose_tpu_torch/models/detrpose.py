@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from .hgnetv2 import HGNetv2
 from .hybrid_encoder import HybridEncoder
+from .layers import FastKANLayer
 from .transformer import Transformer
 
 
@@ -23,7 +24,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     reference's fixed head inits (``init_heads_`` of the modules that have one).
 
     Linear and conv layers draw from PyTorch's default uniform(+-1/sqrt(fan_in)),
-    the packed attention projections and the embeddings from xavier-uniform;
+    the packed attention projections and the embeddings from xavier-uniform,
+    FastKAN's coefficients from normal(1e-2);
     norms keep unit scale and zero shift, BatchNorm statistics mean 0, var 1.
     """
     with torch.no_grad():
@@ -38,6 +40,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.in_proj_bias)
             elif isinstance(m, nn.Embedding):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
+            elif isinstance(m, FastKANLayer):
+                m.coeffs.normal_(0.0, m.init_scale, generator=generator)
         for m in model.modules():
             if hasattr(m, "init_heads_"):
                 m.init_heads_()

@@ -359,3 +359,51 @@ class Gate(nn.Module):
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         g1, g2 = torch.sigmoid(self.gate(torch.cat([x1, x2], dim=-1))).chunk(2, dim=-1)
         return self.norm(g1 * x1 + g2 * x2)
+
+
+class FastKANLayer(nn.Module):
+    """RBF approximation of KAN edge splines, the FastKAN FFN variant
+    (reference: transformer.py:32-141; JAX ``models/layers.py:373-403``).
+
+    x -> LayerNorm (eps 1e-6) -> ``u = (tanh(x) + 1) / 2 * (G - 1)`` -> a
+    Gaussian basis over the G centres 0..G-1 -> the sum over (input, centre)
+    with ``coeffs`` (in//2 + 1, in, G) -> ``out_linear``. The sum is JAX's
+    einsum ``bdg,rdg->br``, here one matrix product of (N, in*G) by
+    (in*G, in//2 + 1). ``coeffs`` is drawn from normal(``init_scale``) by
+    ``models/detrpose.py::init_parameters``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, grid_size: int = 21,
+                 sigma: float = 1.0, init_scale: float = 1e-2):
+        super().__init__()
+        self.in_features, self.grid_size = in_features, grid_size
+        self.sigma, self.init_scale = sigma, init_scale
+        rank = in_features // 2 + 1
+        self.ln = nn.LayerNorm(in_features, eps=1e-6)
+        self.coeffs = nn.Parameter(torch.empty(rank, in_features, grid_size))
+        nn.init.normal_(self.coeffs, 0.0, init_scale)
+        self.out_linear = nn.Linear(rank, out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, D, G = x.shape[:-1], self.in_features, self.grid_size
+        xf = self.ln(x.reshape(-1, D))
+        u = (torch.tanh(xf) + 1.0) * 0.5 * (G - 1)
+        centers = torch.arange(G, dtype=torch.float32, device=x.device)
+        basis = torch.exp(-(((u[..., None] - centers) / (self.sigma + 1e-12)) ** 2))
+        s = basis.reshape(-1, D * G) @ self.coeffs.reshape(-1, D * G).to(basis.dtype).T
+        return self.out_linear(s.to(x.dtype)).reshape(lead + (-1,))
+
+
+class RMSNorm(nn.Module):
+    """RMS normalisation in float32, cast back, times ``weight`` (reference:
+    src/models/detrpose/utils.py:140-183; JAX ``models/layers.py:406-417``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return y.to(x.dtype) * self.weight.to(x.dtype)

@@ -50,7 +50,13 @@ def make_anchors(spatial_shapes: Sequence[Tuple[int, int]],
 
 
 class Transformer(nn.Module):
-    """Reference: transformer.py:929-1420; eval and train paths."""
+    """Reference: transformer.py:929-1420; eval and train paths.
+
+    ``decoder_kwargs`` go to ``TransformerDecoder``: the experimental
+    branches (``MSDA_BRANCHES``, ``use_kan``, ``kan_grid``) and the energy
+    refinement (``use_energy_refinement``, ``energy_steps``,
+    ``energy_step_size``, ``grad_energy``, ``energy_decrease_weight``), whose
+    regulariser the train dict carries as ``energy_reg_loss``."""
 
     def __init__(self, hidden_dim: int = 256, nhead: int = 8, num_queries: int = 60,
                  num_decoder_layers: int = 6, dim_feedforward: int = 1024,
@@ -58,7 +64,7 @@ class Transformer(nn.Module):
                  dec_n_points: int = 4, num_classes: int = 2,
                  num_body_points: int = 17, reg_max: int = 32,
                  reg_scale: float = 4.0, up: float = 0.5,
-                 msda_backend: str = "auto", remat: bool = False):
+                 msda_backend: str = "auto", remat: bool = False, **decoder_kwargs):
         super().__init__()
         hd, K = hidden_dim, num_body_points
         self.hidden_dim, self.num_queries, self.num_body_points = hd, num_queries, K
@@ -76,7 +82,8 @@ class Transformer(nn.Module):
 
         self.decoder = TransformerDecoder(
             num_decoder_layers, hd, K, dim_feedforward, activation,
-            num_feature_levels, nhead, dec_n_points, reg_scale, msda_backend, remat)
+            num_feature_levels, nhead, dec_n_points, reg_scale, msda_backend, remat,
+            reg_max=reg_max, **decoder_kwargs)
         self.pre_pose_embed = MLP(hd, hd, 2, 3)
         self.pose_embed = nn.ModuleList(
             MLP(hd, hd, 2 * (reg_max + 1), 3) for _ in range(num_decoder_layers))
@@ -166,7 +173,7 @@ class Transformer(nn.Module):
             kpts, logits = dec
             return {"pred_logits": logits, "pred_keypoints": kpts.reshape(B, nq, 2 * K)}
 
-        out_poses, out_logits, out_corners, ref_init, pre_poses, pre_scores = dec
+        out_poses, out_logits, out_corners, ref_init, pre_poses, pre_scores, energy_reg = dec
         L = out_poses.shape[0]
         flat = out_poses.flatten(-2)                               # (L, B, pad+nq, 2K)
         pre_flat = pre_poses.flatten(-2)
@@ -194,6 +201,10 @@ class Transformer(nn.Module):
             "aux_pre_outputs": {"pred_logits": pre_scores[:, pad:],
                                 "pred_keypoints": pre_flat[:, pad:]},
         }
+        if energy_reg is not None:
+            # JAX returns 0 here without energy refinement; leaving the key out
+            # keeps the default model's logged loss terms JAX's
+            out["energy_reg_loss"] = energy_reg
         if pad:
             out["dn_aux_outputs"] = [
                 {"pred_logits": dn_logits[i], "pred_keypoints": dn_poses[i],

@@ -21,6 +21,9 @@ runs. The op's gradient mirrors the JAX ``custom_vjp``: the forward is the
 kernel, the backward re-derives gradients by autograd through the plain
 version (as ``_fast_bwd`` does through the XLA path), inside the profiler
 range ``BACKWARD_RANGE`` so a trace can give its share of a training step.
+Under grad mode (a backward that is itself differentiated) that backward is
+recorded, so second derivatives flow as through JAX's gather path, and it
+computes only the gradients the running backward uses.
 There is no backward kernel, because the TPU kernel has none.
 
 The module also holds what the other wrappers share: ``bind`` and the level
@@ -365,6 +368,21 @@ BACKWARD_RANGE = "msda_fwd_backward"   # the profiler range of the op's backward
 def _backward(ctx, grad_out):
     value, loc, aw = ctx.saved_tensors
     need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
+    if torch.is_grad_enabled():
+        # a backward that is itself differentiated (create_graph=True): the
+        # plain version's gradient on the saved inputs, recorded, so that a
+        # second derivative flows to value, loc and aw as through JAX's
+        # gather path. An input whose gradient the running backward does not
+        # use is left out (energy refinement's inner gradient wants none for
+        # the value): its recorded graph would be held for nothing
+        need = tuple(n and (t.grad_fn is None or torch._C._will_engine_execute_node(t.grad_fn))
+                     for t, n in zip((value, loc, aw), need))
+        wanted = [t for t, n in zip((value, loc, aw), need) if n]
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            out = ms_deform_attn_core(value, pairs(ctx.level_hw), loc, aw)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out, create_graph=True))
+        gv, gl, ga = (next(grads) if n else None for n in need)
+        return gv, None, gl, ga
     inputs = [t.detach().requires_grad_(n) for t, n in zip((value, loc, aw), need)]
     wanted = [t for t in inputs if t.requires_grad]
     grads = iter(())

@@ -28,7 +28,6 @@ from ..ms_deform_attn import SpatialShapes, bilinear_sample
 from .msda import MAX_BLOCKS, MAX_LEVELS, bind, flat_hw, gather_plan, level_table, pairs
 
 MAX_DH = 64          # the widest head the op takes
-MAX_POINTS = 32      # nL*nP per query the op takes
 
 
 def _load():
@@ -143,11 +142,14 @@ class MSDAPerQuery:
         if not 1 <= dh <= MAX_DH:
             raise ValueError(f"msda_perquery: head width {dh} (at most {MAX_DH})")
         n_pts = aw.shape[-1]
-        if (tuple(aw.shape[:2]) != (B, nH) or n_pts % nL or not 1 <= n_pts <= MAX_POINTS
+        # any point count: the generic point loop of csrc/msda_gather.cuh
+        # takes what the 4- and 6-point instantiations do not (the grid
+        # branch's 3 x 16 a query)
+        if (tuple(aw.shape[:2]) != (B, nH) or n_pts % nL or n_pts < 1
                 or tuple(loc.shape) != tuple(aw.shape[:3]) + (2 * n_pts,)):
             raise ValueError(f"msda_perquery: locations {tuple(loc.shape)} and weights "
                              f"{tuple(aw.shape)} do not fit value {tuple(value.shape)} "
-                             f"and {nL} levels (at most {MAX_POINTS} points per query)")
+                             f"and {nL} levels")
         Lq = loc.shape[2]
         if gather_plan(1, dh, value.element_size(), value.data_ptr(),
                        B * nH * Lq).blocks > MAX_BLOCKS:

@@ -8,8 +8,9 @@ samples weighted by the softmaxed attention weights.
 
 This is a direct 4-corner gather: pixel coordinates ``ix = x*W - 0.5``,
 ``iy = y*H - 0.5``, each corner zeroed on its own when it falls outside the
-map, and the sum kept in float32. It is the CPU path, the autograd path of
-the CUDA kernel (``ops/cuda/msda.py``) and the twin that kernel is held to.
+map, and the sum kept in float32 (float64 for float64 inputs). It is the
+CPU path, the autograd path of the CUDA kernel (``ops/cuda/msda.py``) and
+the twin that kernel is held to.
 ``bilinear_sample`` is the corner arithmetic; kernel #2's plain version
 (``ops/cuda/msda_perquery.py``) uses it on its own packed layout, and the
 plain versions of kernels #3–#5 use ``bilinear_sample_px``, the same taps at
@@ -54,7 +55,8 @@ def bilinear_sample(v: torch.Tensor, H: int, W: int, lx: torch.Tensor,
 def bilinear_sample_px(v: torch.Tensor, H: int, W: int, ix: torch.Tensor,
                        iy: torch.Tensor) -> torch.Tensor:
     """``bilinear_sample`` at pixel coordinates ``ix = x*W - 0.5``,
-    ``iy = y*H - 0.5``, (N, P) float32 -> (N, P, dh) float32."""
+    ``iy = y*H - 0.5``, (N, P) float32 -> (N, P, dh) float32 (float64 from
+    float64 coordinates)."""
     dh = v.shape[-1]
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
@@ -70,7 +72,7 @@ def bilinear_sample_px(v: torch.Tensor, H: int, W: int, ix: torch.Tensor,
         xi = xc.nan_to_num(0.0).clamp(0, W - 1).long()
         yi = yc.nan_to_num(0.0).clamp(0, H - 1).long()
         idx = (yi * W + xi).unsqueeze(-1).expand(-1, -1, dh)
-        g = torch.gather(v, 1, idx).float()                       # (N, P, dh)
+        g = torch.gather(v, 1, idx).to(ix.dtype)                  # (N, P, dh)
         sampled = sampled + g * (w * valid)[..., None]
     return sampled
 
@@ -96,10 +98,13 @@ def ms_deform_attn_core(
     assert len(spatial_shapes) == nL, (spatial_shapes, nL)
     C = value.shape[-1]
     dh = C // nH
-    loc = sampling_locations.float()
-    aw = attention_weights.float()
+    # float32, or float64 where an input is
+    acc = torch.promote_types(torch.promote_types(value.dtype, sampling_locations.dtype),
+                              torch.float32)
+    loc = sampling_locations.to(acc)
+    aw = attention_weights.to(acc)
 
-    out = value.new_zeros((B * nH, Lq, dh), dtype=torch.float32)
+    out = value.new_zeros((B * nH, Lq, dh), dtype=acc)
     start = 0
     for lvl, (H, W) in enumerate(spatial_shapes):
         # (B, H*W, nH, dh) -> (B*nH, H*W, dh)

@@ -107,6 +107,12 @@ class TrainStep:
                                      weight_dict=self.weight_dict,
                                      matcher_backend=self.matcher_backend,
                                      losses=self.losses)
+                if "energy_reg_loss" in out:
+                    # the energy refinement's regulariser joins the total
+                    # (JAX train_step.py:95-97) and is logged with the terms;
+                    # a rank's is the mean over its share of the batch, so its
+                    # share of the global mean is 1/world of it
+                    terms["energy_reg_loss"] = out["energy_reg_loss"] / n_ranks
                 total = torch.stack([v.float() for v in terms.values()]).sum()
                 logged = torch.stack([total.detach()] + [v.detach().float()
                                                          for v in terms.values()]

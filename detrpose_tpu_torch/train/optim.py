@@ -74,8 +74,11 @@ def label_parameters(model: nn.Module, freeze_backbone_norm: bool = True,
         if parts[0] != "backbone":
             labels[name] = "main"
             continue
-        stage = (-1 if parts[1] == "stem" else
-                 int(parts[2]) if parts[1] == "stages" else None)
+        # HGNetv2: stem, stages.{i}; ResNet: conv1, bn1, layer{i+1}_{block}
+        stage = (-1 if parts[1] in ("stem", "conv1", "bn1") else
+                 int(parts[2]) if parts[1] == "stages" else
+                 int(parts[1][len("layer"):].split("_")[0]) - 1
+                 if parts[1].startswith("layer") else None)
         frozen = freeze_backbone
         if freeze_at >= 0 and stage is not None:
             frozen |= stage == -1 or (not freeze_stem_only and stage <= freeze_at)

@@ -4,7 +4,10 @@ the reference's zoo ``.pth`` files.
 ``from_jax_variables`` is the inverse of ``detrpose_tpu/utils/convert.py``
 (flax path -> torch key rewrites, conv HWIO <-> OIHW, Dense transpose, packed
 attention q/k/v, the scanned decoder stack). This module keeps its own copy of
-those rules: the port imports nothing of the JAX package.
+those rules: the port imports nothing of the JAX package. The model
+variants' leaves (the MSDeformAttn branches', FastKAN's, the energy layer's,
+``energy_step_size``, the ResNet's ``conv1``, ``bn1.bn``, ``layer{s}_{b}``)
+take the same rules; the port's modules carry their names.
 """
 from __future__ import annotations
 

@@ -73,14 +73,15 @@ def test_perquery_checks_raise(bad):
     nP, dh, shapes = 4, 32, [(4, 4), (2, 2)]
     if bad == "dh":
         dh = 80
-    elif bad == "points":
-        nP = 17
     elif bad == "levels":
         shapes = [(2, 2)] * 5
     S, nL = sum(h * w for h, w in shapes), len(shapes)
     value = torch.zeros(1, 2, S, dh)
-    loc = torch.zeros(1, 2, 3, nL * nP * 2)
-    aw = torch.zeros(1, 2, 3, nL * nP)
+    # a point count that is no multiple of the levels' (any count that is
+    # one runs: 2 x 17 below, the grid branch's 3 x 16)
+    n_pts = nL * nP + (1 if bad == "points" else 0)
+    loc = torch.zeros(1, 2, 3, n_pts * 2)
+    aw = torch.zeros(1, 2, 3, n_pts)
     if bad == "value_dtype":
         value = value.half()
     elif bad == "loc_dtype":
@@ -91,6 +92,9 @@ def test_perquery_checks_raise(bad):
         shapes = shapes[:1]
     with pytest.raises((TypeError, ValueError)):
         MSDAPerQuery._check(value, shapes, loc, aw)
+    if bad == "points":
+        MSDAPerQuery._check(value, shapes, torch.zeros(1, 2, 3, 2 * 34),
+                            torch.zeros(1, 2, 3, 34))
     if bad not in ("value_dtype", "loc_dtype", "noncontig", "shapes"):
         return
     # and the checks pass on the same tensors made right
