@@ -17,7 +17,10 @@ Phases (any failure exits non-zero before the last line is printed):
      main path 5's multi-scale extremes, 480 and 800 px, and at main path
      6's micro-batches (4 images at 640 px; 2 and 4 at 480 and 800 px; the
      eval shapes at 4), at main path 7's L eval shapes (the grid branch's 16
-     points, 16 heads of 16 channels, 32 heads of 8), float32 (1e-5 of
+     points, 16 heads of 16 channels, 32 heads of 8), and at main path 8's
+     (the overfit's N at 160 px: its train batch of 16 with 64 CDN slots,
+     the op too, and its evaluation batches of 16 and 8; L eval at 1 and 2
+     images for the tutorial and the import check), float32 (1e-5 of
      max|ref|) and bf16 values (1% of
      max|ref|); kernels #1 and #2 also at
      shapes no 16-byte load fits (dh 12, nP 3, odd level sizes, ragged
@@ -135,10 +138,13 @@ Phases (any failure exits non-zero before the last line is printed):
      offsets, fused; 4 points unfused), the FastKAN FFN, energy refinement
      (3 steps, by the gradient and by the raw energy) and the ResNet-50
      backbone, through "auto" (kernel #1) and "pallas" (kernel #2) against
-     "gather" within 1e-4 on logits and normalized keypoints, with the exact
-     launches of the chosen kernel (6 a forward, 12 with the grid branch,
-     6 + steps with the raw energy, 6 + 2 x steps with its gradient) and
-     none of the other; "pallas" with grad_energy must raise (no gradient);
+     "gather" (all plain: the script sets the energy layer to "gather" for
+     this reference only) within 1e-4 on logits and normalized keypoints,
+     with exact launches: the chosen kernel 6 a forward in the main layers,
+     12 with the grid branch; the energy layer runs on "auto", as JAX builds
+     it, so kernel #1 adds steps (raw energy) or 2 x steps (its gradient)
+     under "auto" and under "pallas" alike; "pallas" with grad_energy
+     evaluates;
      (b) one L training micro-step (bs 2, float32, one CDN batch,
      deterministic algorithms) per family (grouped with modulation, grid
      with offsets, FastKAN, energy by the gradient in 3 steps, ResNet-50)
@@ -150,7 +156,22 @@ Phases (any failure exits non-zero before the last line is printed):
      folder of 4 synthetic JPEGs (a process of its own) and a 4-frame mp4
      (or, without cv2, its image path up to the detections, said on a line
      of its own), and bench_data at bs 1 and 32 over synthetic JPEGs;
- 12. print the kernel table, the card line and, last, the result line.
+ 12. main path 8, weights from elsewhere and the repo-level programs: (a)
+     a seeded L's state_dict saved with torch.save and imported by
+     load_pretrained_backbone_encoder into a fresh L of another seed on the
+     card, the backbone and encoder bit-equal to it, every transformer leaf
+     as initialised, then its forward through kernel #1; (b)
+     examples/tutorial_torch.py at L, 640 px, on the card in its own
+     process: its overlay written, its first and steady latencies, 12
+     launches of kernel #1 in its 2 calls; (c) bench_torch.py at L, bs 32,
+     640 px, bf16, its JSON line printed, failing on measurement_invalid, on
+     a null MFU on a card of known peak, or unless kernel #1 launched 6
+     times a forward call; (d) tools/component_slope.py's stage split at L,
+     bs 32, 640 px, bf16, kernel #1 0, 0, 6 and 6 launches a call of its
+     stages; (e) tools/overfit.py, a short run of N at 160 px: its loss
+     must fall, its losses and the evaluator's 10 stats of each stream be
+     finite, kernel #1 3 launches a step and an evaluation batch;
+ 13. print the kernel table, the card line and, last, the result line.
 
 Whether it passes or fails, the script ends only after every process it
 started has: it adopts its descendants' orphans (a rank's data worker
@@ -181,6 +202,7 @@ import torch
 import torch.nn.functional as F
 from PIL import Image, ImageDraw
 
+import bench_torch
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.data.evaluator import KeypointEvaluator
 from detrpose_tpu_torch.models import MSDeformAttn, postprocess
@@ -206,14 +228,17 @@ from detrpose_tpu_torch.parallel.mesh import shard_batch
 from detrpose_tpu_torch.parallel.train_step import PHASES, make_train_step
 from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda_v2, pallas_bench
 from detrpose_tpu_torch.tools.benchmark import launch_counts, synthetic_train_batch
+from detrpose_tpu_torch.tools.component_slope import ALONE, DELTAS, STAGES, component_slope
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline, detections
 from detrpose_tpu_torch.tools.infer import main as infer_main
+from detrpose_tpu_torch.tools.overfit import overfit
 from detrpose_tpu_torch.tools.train import main as train_main
 from detrpose_tpu_torch.train.matcher import hungarian_match
 from detrpose_tpu_torch.train.optim import label_parameters, make_optimizer
+from detrpose_tpu_torch.utils.convert import load_pretrained_backbone_encoder, load_torch_checkpoint
 from detrpose_tpu_torch.utils.deploy import fuse_for_deploy
-from detrpose_tpu_torch.utils.measure import cuda_time_ms, kernel_times, traced
+from detrpose_tpu_torch.utils.measure import card_power_limit, cuda_time_ms, kernel_times, traced
 from detrpose_tpu_torch.utils.native import native_error
 
 SEED = 0
@@ -256,6 +281,13 @@ DP_SHAPES = {"dp4": dict(TRAIN_SHAPES, B=TRAIN_BATCH // DP_RANKS),
                                                           DP_SET // TRAIN_ACCUM)
                 for label, shp in TRAIN_MS_SHAPES.items()},
              "Ldp4": dict(L_SHAPES, B=DP_EVAL_BATCH)}
+# main path 8: the overfit recipe's N at 160 px (levels at strides 16/32),
+# its train batches of 16 with 64 CDN slots and its evaluation batches of 16
+# and 8; the tutorial's L request of one image and phase 12 (a)'s two
+N160_SHAPES = dict(N_SHAPES, levels=((10, 10), (5, 5)))
+PATH8_SHAPES = {"N160t16": dict(N160_SHAPES, B=16, Lq=124 * 18),
+                "N160e16": dict(N160_SHAPES, B=16), "N160e8": dict(N160_SHAPES, B=8),
+                "L1": dict(L_SHAPES, B=1), "L2": dict(L_SHAPES, B=2)}
 # template instantiations of each library: #1 and #2 dtype x load width x
 # nP, #3 load width, #4 level count x taps from shared or device memory, #5
 # mode x load width and no_cexp's row pass
@@ -344,9 +376,10 @@ def stop_children(grace_s=10.0, deadline_s=30.0):
 
 
 def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card, _ = card_power_limit()
+    if card is None:
+        fail("nvidia-smi did not give the card's name and power limit")
+    return card
 
 
 def ptxas_report(log):
@@ -532,11 +565,11 @@ def compare_outputs(label, got, want, limit):
 
 def check_kernels(g):
     """Phase 3: each kernel against its plain version; returns the max|err|
-    at the L, train, multi-scale and main path 6's shapes in bf16 per
+    at the L, train, multi-scale and main paths 6 and 8's shapes in bf16 per
     kernel."""
     errs = {}
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("train", TRAIN_SHAPES),
-                       *TRAIN_MS_SHAPES.items(), *DP_SHAPES.items(),
+                       *TRAIN_MS_SHAPES.items(), *DP_SHAPES.items(), *PATH8_SHAPES.items(),
                        *VARIANT_SHAPES.items(), ("N", N_SHAPES),
                        ("X", X_SHAPES), ("odd", ODD_SHAPES), ("nL4", NL4_SHAPES),
                        ("offset", TEST_SHAPES)):
@@ -565,7 +598,8 @@ def check_kernels(g):
                 if not err <= rel * scale:
                     fail(f"{name} disagrees with its plain version at {label} {dtype}")
                 if (label in ("L", "train") or label in TRAIN_MS_SHAPES or label in DP_SHAPES
-                        or label in VARIANT_SHAPES) and dtype == torch.bfloat16:
+                        or label in PATH8_SHAPES or label in VARIANT_SHAPES) \
+                        and dtype == torch.bfloat16:
                     errs[name] = max(err, errs.get(name, 0.0))
     # the per-point kernels take the packed bf16 values the TPU ops cast to
     for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("odd", ODD_SHAPES),
@@ -1001,8 +1035,9 @@ def train_time_split(step, batch, n=TRAIN_ACCUM):
 
 def check_train_op(g):
     """Phase 3: kernel #1's op (the custom op that main paths 4-6 call) at
-    the L train shapes, 640 px and main path 5's multi-scale extremes, and
-    at main path 6's micro-batches of 4 and 2 images,
+    the L train shapes, 640 px and main path 5's multi-scale extremes, at
+    main path 6's micro-batches of 4 and 2 images, and at main path 8's N
+    overfit batch (160 px, 16 images),
     against the plain version on the same inputs, float32 and
     bf16 values: its output, and the value, location and weight gradients
     of one upstream gradient, each within phase 3's limit of its max|ref|.
@@ -1019,7 +1054,8 @@ def check_train_op(g):
 def _check_train_op(g):
     for (label, shp), (dtype, rel) in itertools.product(
             (("train", TRAIN_SHAPES), *TRAIN_MS_SHAPES.items(),
-             *((k, v) for k, v in DP_SHAPES.items() if v["Lq"] == TRAIN_SHAPES["Lq"])),
+             *((k, v) for k, v in DP_SHAPES.items() if v["Lq"] == TRAIN_SHAPES["Lq"]),
+             ("N160t16", PATH8_SHAPES["N160t16"])),
             ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))):
         value, levels, loc, aw = msda_inputs(g, dtype, **shp)
         ins = [t.requires_grad_() for t in (value, loc, aw)]
@@ -1039,7 +1075,7 @@ def _check_train_op(g):
                   f"max|ref| {scale:.3e} (limit {rel:g} of max|ref|)")
             if not (err <= rel * scale and torch.isfinite(got).all()):
                 fail(f"kernel #1's op disagrees with the plain version on its {what} at the "
-                     f"L {label} shapes, {dtype}")
+                     f"{label} train shapes, {dtype}")
         del ins, results
 
 
@@ -1880,22 +1916,47 @@ TRAIN_VARIANTS = {
 }
 
 
-def variant_launches(flags):
-    """Kernel launches of one L forward: one MSDA call a decoder layer (6),
-    a second one a layer with the grid branch (12); energy refinement adds
-    one a step (the energy layer's), two with grad_energy (the energy and its
-    gradient's forward; the op's backward runs the plain version)."""
-    layers = model_config("l", **flags).num_decoder_layers
-    n = layers * (2 if flags.get("use_grid_attention") else 1)
+def variant_launches(flags, backend):
+    """Kernel launches of one L forward (or train micro-step) under
+    ``backend``: one MSDA call a main decoder layer (6), a second one a layer
+    with the grid branch (12), on the backend's kernel; energy refinement
+    adds one a step on kernel #1 (the energy layer runs on "auto", as JAX
+    builds it), two with grad_energy (the energy and its gradient's forward;
+    the op's backward runs the plain version). "gather" is the all-plain
+    reference (``set_energy_backend``): no launch."""
+    cfg = model_config("l", **flags)
+    main = cfg.num_decoder_layers * (2 if flags.get("use_grid_attention") else 1)
+    energy = 0
     if flags.get("use_energy_refinement"):
-        n += flags["energy_steps"] * (2 if flags.get("grad_energy") else 1)
-    return n
+        energy = flags["energy_steps"] * (2 if flags.get("grad_energy") else 1)
+    want = {k: 0 for k in KERNELS}
+    if backend == "auto":
+        want["msda_fwd"] = main + energy
+    elif backend == "pallas":
+        want["msda_perquery"], want["msda_fwd"] = main, energy
+    return want
+
+
+def energy_attn(model):
+    """The energy layer's MSDA module, in a list (empty without one)."""
+    layer = getattr(model.transformer.decoder, "energy_layer", None)
+    return [] if layer is None else [m for m in layer.modules() if isinstance(m, MSDeformAttn)]
 
 
 def set_backend(model, backend):
+    """The main decoder layers' MSDA backend; the energy layer keeps the
+    backend the model built it with ("auto", as JAX)."""
+    energy = {id(m) for m in energy_attn(model)}
     for m in model.modules():
-        if isinstance(m, MSDeformAttn):
+        if isinstance(m, MSDeformAttn) and id(m) not in energy:
             m.msda_backend = backend
+
+
+def set_energy_backend(model, backend):
+    """The energy layer's MSDA backend: "gather" only for the all-plain
+    reference the kernels are held against, "auto" otherwise."""
+    for m in energy_attn(model):
+        m.msda_backend = backend
 
 
 def variant_model(flags, backend="gather"):
@@ -1910,32 +1971,21 @@ def variant_model(flags, backend="gather"):
 
 def check_variant(name, flags, x):
     """Phase 11 (a) for one configuration (float32, TF32 off): the forward
-    through "gather", "auto" and "pallas", the kernels' outputs within 1e-4
+    through "gather" (all plain, the energy layer's too), "auto" and "pallas"
+    (the energy layer on "auto" under both), the kernels' outputs within 1e-4
     of the plain version's, exact launch counts; returns the model (backend
     "auto") and the launches of the kernels' runs."""
     model = variant_model(flags)
-    n = variant_launches(flags)
     outs, total = {}, {k: 0 for k in KERNELS}
     for backend in ("gather", "auto", "pallas"):
         set_backend(model, backend)
+        set_energy_backend(model, "gather" if backend == "gather" else "auto")
         zero_launch_counts()
-        if backend == "pallas" and flags.get("grad_energy"):
-            # kernel #2 has no gradient, and the descent takes one
-            try:
-                with torch.no_grad():
-                    model(x)
-            except RuntimeError as e:
-                if "no gradient" not in str(e):
-                    raise
-                print(f"[11] {name}: msda_backend='pallas' raised as it must: {e}")
-                continue
-            fail(f"{name}: msda_backend='pallas' with grad_energy did not raise")
         with torch.no_grad():
             outs[backend] = model(x)
         torch.cuda.synchronize()
         counts = launch_counts()
-        key = {"auto": "msda_fwd", "pallas": "msda_perquery"}.get(backend)
-        want = {k: (n if k == key else 0) for k in KERNELS}
+        want = variant_launches(flags, backend)
         if counts != want:
             fail(f"{name} L forward with msda_backend={backend!r} launched {counts}, "
                  f"expected {want}")
@@ -1944,7 +1994,9 @@ def check_variant(name, flags, x):
         if backend != "gather":
             compare_outputs(f"11 {name} {backend} vs gather", outs[backend], outs["gather"],
                             1e-4)
-    print(f"[11] {name} L bs2 640 f32: {n} launches of the chosen kernel a forward")
+    print(f"[11] {name} L bs2 640 f32: launches a forward under 'auto' "
+          f"{variant_launches(flags, 'auto')}, under 'pallas' "
+          f"{variant_launches(flags, 'pallas')}")
     set_backend(model, "auto")
     return model, total
 
@@ -1961,9 +2013,10 @@ def check_train_variant(name, flags, batch):
     the same weights, as phase 5; returns kernel #1's launches."""
     model = variant_model(flags).train()
     runs, launched, peak = {}, {k: 0 for k in KERNELS}, {}
-    n = variant_launches(flags)
+    n = variant_launches(flags, "auto")["msda_fwd"]
     for backend in ("auto", "gather"):
         set_backend(model, backend)
+        set_energy_backend(model, backend)
         step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
                                compute_dtype=torch.float32, use_ema=False)
         zero_launch_counts()
@@ -1971,7 +2024,7 @@ def check_train_variant(name, flags, batch):
         metrics = step(batch)
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = {k: (n if backend == "auto" and k == "msda_fwd" else 0) for k in KERNELS}
+        want = variant_launches(flags, backend)
         if counts != want:
             fail(f"{name} L train micro-step with msda_backend={backend!r} launched {counts}, "
                  f"expected {want}")
@@ -2020,6 +2073,7 @@ def check_train_variant(name, flags, batch):
         # own float32 gradient is (or 1e-3 of its max|g|)
         model.double()
         set_backend(model, "gather")
+        set_energy_backend(model, "gather")
         step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
                                compute_dtype=torch.float32, use_ema=False)
         step(dict(batch, images=batch["images"].double()))
@@ -2166,6 +2220,184 @@ def variants_path(card, gen, g):
     print(f"[11] main path 7: kernel launches {total}; {seconds:.1f} s")
     return total, {"serve_ms": serve, "kernel_ms": kernel_ms, "tools": tools_out,
                    "seconds": seconds}
+
+
+# ---- main path 8: weights from elsewhere, the tutorial, the headline bench,
+# the stage split, the overfit run ------------------------------------------
+# the short overfit run of phase 12 (e): N at 160 px on the drawn set, its
+# loss sampled 4 times; sized to about a minute on an H100
+OVERFIT_SMOKE = dict(steps=200, n_images=32, stage_epochs=1, sample_every=50, holdout=16)
+L_LAYERS = model_config("l").num_decoder_layers
+N_LAYERS = model_config("n").num_decoder_layers
+
+
+def expect_launches(label, counts, msda_fwd):
+    """Fail unless kernel #1 launched ``msda_fwd`` times and no other kernel."""
+    want = {k: (msda_fwd if k == "msda_fwd" else 0) for k in KERNELS}
+    if counts != want:
+        fail(f"{label} launched {counts}, expected {want}")
+
+
+def pretrain_import_path():
+    """Phase 12 (a): a seeded L's state_dict (its constant leaves perturbed)
+    through torch.save into a fresh L of another seed on the card; returns
+    the launches."""
+    gen = torch.Generator().manual_seed(SEED)
+    src = build_model(model_config("l"), device="cuda", generator=gen)
+    perturb_constant_leaves(src, gen)    # no leaf the same as a fresh L's
+    dst = build_model(model_config("l"), device="cuda",
+                      generator=torch.Generator().manual_seed(SEED + 1))
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "detrpose_l.pth")
+        torch.save(src.state_dict(), path)
+        sd = load_torch_checkpoint(path)
+    del src
+    before = {k: v.clone() for k, v in dst.state_dict().items()}
+    loaded = load_pretrained_backbone_encoder(sd, dst)
+    after = dst.state_dict()
+    parts = ("backbone.", "encoder.")
+    if set(loaded) != {k for k in after if k.startswith(parts)}:
+        fail("the backbone/encoder import did not load every backbone and encoder leaf")
+    for k, v in after.items():
+        same = torch.equal(v.cpu(), sd[k]) if k.startswith(parts) else torch.equal(v, before[k])
+        if not same:
+            fail(f"the backbone/encoder import: {k} is not what it must be "
+                 f"({'the state_dict' if k.startswith(parts) else 'as initialised'})")
+    moved = sum(not torch.equal(after[k], before[k]) for k in loaded)
+    x = torch.rand(2, 3, 640, 640, generator=torch.Generator().manual_seed(SEED)).cuda()
+    zero_launch_counts()
+    with torch.no_grad():
+        out = dst(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect_launches("the imported L forward", counts, L_LAYERS)
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        fail("the imported L forward gave non-finite outputs")
+    n_dec = sum(k.startswith("transformer.") for k in after)
+    print(f"[12] (a) backbone/encoder import into L on the card: {len(loaded)} leaves "
+          f"bit-equal to the saved state_dict ({moved} differed from the fresh L's), "
+          f"{n_dec} transformer leaves as initialised; the forward (bs 2, 640 px, float32) "
+          f"finite, kernel #1 {counts['msda_fwd']} launches")
+    return counts
+
+
+def tutorial_path(card, root):
+    """Phase 12 (b): examples/tutorial_torch.py at L, 640 px, on the card, in
+    its own process; returns its latencies and launches."""
+    out = os.path.join(root, "tutorial_overlay.jpg")
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                          "tutorial_torch.py")
+    r = subprocess.run([sys.executable, script,
+                        "--size", "l", "--res", "640", "--device", "cuda", "--output", out],
+                       capture_output=True, text=True, timeout=300)
+    print("\n".join(f"[12] tutorial: {line}" for line in r.stdout.strip().splitlines()))
+    if r.returncode != 0 or not os.path.exists(out) or os.path.getsize(out) < 1000:
+        fail(f"the tutorial: rc {r.returncode}, overlay written "
+             f"{os.path.exists(out)}; {r.stderr[-2000:]}")
+    ms = {k: float(re.search(rf"^{k} call: ([0-9.]+) ms", r.stdout, re.M).group(1))
+          for k in ("first", "steady")}
+    counts = json.loads(re.search(r"^kernel launches in the 2 calls: (.*)$", r.stdout,
+                                  re.M).group(1))
+    expect_launches("the tutorial's 2 calls", counts, 2 * L_LAYERS)
+    print(f"[12] (b) the tutorial at L, 640 px: first call {ms['first']:.3f} ms, steady call "
+          f"{ms['steady']:.3f} ms (host clock to synchronize); on {card}")
+    return counts, ms
+
+
+def bench_path(card):
+    """Phase 12 (c): bench_torch.py at L, bs 32, 640 px, bf16, in this
+    process; returns its JSON line and the launches."""
+    for k, v in (("BENCH_MODEL", "l"), ("BENCH_BATCH", "32"), ("BENCH_RES", "640"),
+                 ("BENCH_ITERS", "30")):
+        os.environ[k] = v
+    zero_launch_counts()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        result = bench_torch.main()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    line = captured.getvalue().strip().splitlines()[-1]
+    if json.loads(line) != result:
+        fail("bench_torch.py: its printed line is not its result")
+    print(f"[12] (c) bench_torch.py: {line}")
+    if result["measurement_invalid"]:
+        fail("bench_torch.py: measurement_invalid")
+    if result["device_kind"] in bench_torch.DEVICE_PEAK_TFLOPS and result["mfu"] is None:
+        fail(f"bench_torch.py: no MFU on {result['device_kind']}")
+    expect_launches(f"bench_torch.py's {result['forward_calls']} forward calls", counts,
+                    L_LAYERS * result["forward_calls"])
+    print(f"[12] (c) bench_torch.py: {result['value']} images/s, {result['ms_per_batch']} "
+          f"ms/batch, MFU {result['mfu']} (conv + matmul + attention FLOPs); kernel #1 "
+          f"{counts['msda_fwd']} launches over {result['forward_calls']} forward calls; "
+          f"on {card}")
+    return counts, result
+
+
+def stage_split_path(card):
+    """Phase 12 (d): tools/component_slope.py at L, bs 32, 640 px, bf16."""
+    zero_launch_counts()
+    split = component_slope("l", 32, 640, iters=10)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_call = {name: split["launches"][name]["msda_fwd"] for name in STAGES}
+    want = dict(zip(STAGES, (0, 0, L_LAYERS, L_LAYERS)))
+    if per_call != want or any(v for name in STAGES for k, v in split["launches"][name].items()
+                               if k != "msda_fwd"):
+        fail(f"the stage split's launches a call {split['launches']}, expected kernel #1 "
+             f"{want}")
+    full = split["full + postprocess"]
+    print(f"[12] (d) stage split, L bs32 640 bf16 (CUDA events, the fastest of 3 rounds of 10 "
+          f"calls a stage): " + ", ".join(
+        f"{name} {split[name]:.3f} ms" for name in STAGES + tuple(DELTAS) + (ALONE,))
+        + "; shares of "
+        "full + postprocess: " + ", ".join(
+            f"{name.split(' ')[0]} {100 * split[name] / full:.1f}%"
+            for name in ("backbone",) + tuple(DELTAS)) + f"; kernel #1 a call {per_call}; "
+        f"on {card}")
+    return counts, split
+
+
+def overfit_path(card):
+    """Phase 12 (e): a short overfit run of N at 160 px on the card."""
+    zero_launch_counts()
+    r = overfit(device="cuda", log=lambda m: print(f"[12] overfit: {m}"), **OVERFIT_SMOKE)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    curve = [v for _, v in r["curve"]]
+    if not r["finite"] or not curve[-1] < curve[0]:
+        fail(f"the short overfit run's loss did not fall: {r['curve']}")
+    for name, stats in r["stats"].items():
+        if len(stats) != 10 or not all(np.isfinite(v) for v in stats.values()):
+            fail(f"the short overfit run's evaluator ({name}) gave {stats}")
+    expect_launches("the short overfit run", counts,
+                    N_LAYERS * (OVERFIT_SMOKE["steps"] + r["eval_batches"]))
+    print(f"[12] (e) overfit N 160 px, bs 16, {OVERFIT_SMOKE['steps']} steps on "
+          f"{OVERFIT_SMOKE['n_images']} drawn images: {r['step_ms']:.3f} ms a step (host clock), "
+          f"loss {curve[0]:.3f} -> {curve[-1]:.3f}, train AP {r['stats']['regular']['AP']:.4f} "
+          f"/ EMA {r['stats']['ema']['AP']:.4f}, set-up {r['setup_s']:.1f} s, evaluation "
+          f"{r['eval_s']:.1f} s; kernel #1 {counts['msda_fwd']} launches; on {card}")
+    return counts, r
+
+
+def weights_bench_path(card):
+    """Main path 8 (phase 12): returns the launches and the numbers."""
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in KERNELS}
+    numbers = {}
+    counts = pretrain_import_path()
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        counts, numbers["tutorial_ms"] = tutorial_path(card, root)
+    total = {k: total[k] + counts[k] for k in KERNELS}
+    for key, fn in (("bench", bench_path), ("stage_split", stage_split_path),
+                    ("overfit", overfit_path)):
+        torch.cuda.empty_cache()
+        counts, numbers[key] = fn(card)
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"[12] main path 8: kernel launches {total}; {numbers['seconds']:.1f} s")
+    return total, numbers
 
 
 def main():
@@ -2441,7 +2673,13 @@ def main():
     counts_variants7, variant_numbers = variants_path(card, gen, g)
     total = {k: total[k] + counts_variants7[k] for k in KERNELS}
 
-    # ---- 12. report
+    # ---- 12. main path 8: weights from elsewhere, the tutorial, the
+    # headline bench, the stage split, the overfit run
+    torch.cuda.empty_cache()
+    counts_path8, path8_numbers = weights_bench_path(card)
+    total = {k: total[k] + counts_path8[k] for k in KERNELS}
+
+    # ---- 13. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
                "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
@@ -2474,7 +2712,7 @@ def main():
                                                             "backward": bwd_alone[1]},
                                 "matcher_ms": matcher_ms},
                       "trainer": trainer_numbers, "data_parallel": dp_numbers,
-                      "variants": variant_numbers}))
+                      "variants": variant_numbers, "path8": path8_numbers}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

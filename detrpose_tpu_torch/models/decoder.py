@@ -423,9 +423,11 @@ class TransformerDecoder(nn.Module):
             for _ in range(num_layers))
         self.half_pose_ref_point_head = MLP(hidden_dim, hidden_dim, hidden_dim, 2)
         if use_energy_refinement:
-            # the state a keypoint token: 2*(reg_max+1) corner logits and (x, y)
+            # the state a keypoint token: 2*(reg_max+1) corner logits and (x, y);
+            # the layer runs on "auto" whatever the model's backend, as JAX
+            # builds it without one (detrpose_tpu/models/decoder.py:788-791)
             self.energy_layer = DeformableDecoderLayer(
-                hidden_dim, d_ffn, activation, n_levels, n_heads, n_points, msda_backend,
+                hidden_dim, d_ffn, activation, n_levels, n_heads, n_points, "auto",
                 is_energy=True, energy_in_dim=2 * (reg_max + 1) + 2, energy_out_dim=1,
                 normalize_energy=normalize_energy)
             self.energy_step_size = nn.Parameter(torch.full((1,), float(energy_step_size)))
@@ -526,9 +528,10 @@ class TransformerDecoder(nn.Module):
         (``create_graph``) when the caller records a graph, as in training.
         Autograd cannot run under ``torch.inference_mode()``, so there
         ``grad_energy`` raises rather than return unrefined outputs. The energy
-        layer runs on the model's MSDA backend, one call a step and a second
-        for the gradient; kernel #2 (``"pallas"``) has no gradient, so
-        ``grad_energy`` raises under it.
+        layer runs on "auto" (kernel #1 on the card), one call a step and a
+        second for the gradient, whatever the model's backend: under
+        ``"pallas"`` the main layers launch kernel #2 and the energy layer
+        kernel #1, whose op has a gradient.
         """
         if self.grad_energy and torch.is_inference_mode_enabled():
             raise RuntimeError("energy refinement with grad_energy=True takes a gradient "

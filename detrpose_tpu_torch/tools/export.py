@@ -10,8 +10,10 @@ calls, and running the loaded program launches them.
 
 Its inputs are images (B, 3, res, res) float32 in [0, 1] and the original
 (w, h) of each, (B, 2); it returns scores, labels and keypoints as
-``tools/infer.py`` does. Weights come from a reference zoo ``.pth`` or are
-drawn from seed 0. The JAX package's orbax checkpoints are not read yet.
+``tools/infer.py`` does. Weights come from a reference zoo ``.pth``, a
+checkpoint of this package's Trainer or the JAX package's orbax directory
+(converted in memory, ``utils/convert.py::convert_orbax``), EMA weights preferred, or
+are drawn from seed 0.
 
   python -m detrpose_tpu_torch.tools.export --size l --ckpt detrpose_l.pth \\
       --batch 32 --out exported/detrpose_l --check
@@ -56,9 +58,6 @@ def build_serve(size: str, num_body_points: int = 17, ckpt: Optional[str] = None
     dev = resolve_device(device)
     base = build_model(model_config(size, num_body_points=num_body_points), device=dev)
     if ckpt:
-        if not ckpt.endswith(".pth"):
-            raise NotImplementedError("only reference .pth checkpoints are read; "
-                                      "orbax checkpoints wait for the checkpoint module")
         base.load_state_dict(drop_derived(load_torch_checkpoint(ckpt)), strict=True)
     dtype = torch.bfloat16 if bf16 else torch.float32
     model = build_model(model_config(size, num_body_points=num_body_points, dtype=dtype),
@@ -103,7 +102,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--size", default="l", choices=["n", "s", "m", "l", "x"])
     p.add_argument("--num-body-points", type=int, default=17)
-    p.add_argument("--ckpt")
+    p.add_argument("--ckpt", help="a .pth or an orbax directory of the JAX package")
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--res", type=int, default=640)
     p.add_argument("--no-bf16", action="store_true")

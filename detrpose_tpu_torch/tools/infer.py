@@ -13,9 +13,11 @@ tools/inference/annotator.py (the skeleton overlay).
   python -m detrpose_tpu_torch.tools.infer --size n --input video.mp4 --output out.mp4
   python -m detrpose_tpu_torch.tools.infer --size n --input dir/ --device cpu
 
-``--ckpt`` takes a reference zoo ``.pth`` or a checkpoint of this package's
-Trainer (``utils/checkpoint.py`` writes the reference's layout), EMA weights
-preferred; without one the weights are drawn from seed 0. The command line
+``--ckpt`` takes a reference zoo ``.pth``, a checkpoint of this package's
+Trainer (``utils/checkpoint.py`` writes the reference's layout) or an orbax
+checkpoint directory of the JAX package (converted in memory,
+``utils/convert.py::convert_orbax``), EMA weights preferred; without one the weights
+are drawn from seed 0. The command line
 runs in bf16 on the CUDA device, in float32 with ``--device cpu``.
 """
 from __future__ import annotations
@@ -90,7 +92,8 @@ def build_pipeline(size: str, num_body_points: int = 17, ckpt: Optional[str] = N
                    generator: Optional[torch.Generator] = None) -> Pipeline:
     """Build the serving pipeline of one model size.
 
-    ``ckpt`` is a reference zoo ``.pth`` (EMA weights preferred); without one
+    ``ckpt`` is a reference zoo ``.pth``, a Trainer checkpoint or the JAX
+    package's orbax directory (EMA weights preferred); without one
     the weights are drawn from ``generator`` (seed 0 if None). Runs on the CUDA
     device unless ``device="cpu"`` is given.
     """
@@ -178,8 +181,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                 "a folder of images or a video.")
     p.add_argument("--size", default="l", choices=["n", "s", "m", "l", "x"])
     p.add_argument("--num-body-points", type=int, default=17)
-    p.add_argument("--ckpt", help="a reference .pth or a checkpoint of this package's "
-                   "Trainer (EMA weights preferred)")
+    p.add_argument("--ckpt", help="a reference .pth, a checkpoint of this package's "
+                   "Trainer or an orbax directory of the JAX package (EMA weights "
+                   "preferred)")
     p.add_argument("--input", required=True)
     p.add_argument("--output", default="inference_out",
                    help="a directory, or a file path for one image or a video")

@@ -65,7 +65,9 @@ def parse_args(argv=None):
     p.add_argument("--ann")
     p.add_argument("--val-img-dir")
     p.add_argument("--val-ann")
-    p.add_argument("--resume")
+    p.add_argument("--resume", help="a checkpoint of this package's Trainer, or an orbax "
+                   "checkpoint directory of the JAX package (weights, EMA and counters; "
+                   "a fresh optimizer)")
     p.add_argument("--ckpt-pth", help="reference zoo .pth to load")
     p.add_argument("--eval", action="store_true")
     p.add_argument("--test", action="store_true",

@@ -399,6 +399,10 @@ class Trainer:
 
     # ---------------------------------------------------------------- resume
     def resume(self, path: str):
+        """Restore the training state from a checkpoint of this Trainer, or
+        from the JAX package's orbax directory (converted in memory: the
+        weights, the EMA and the counters, with a fresh optimiser); the next
+        epoch follows the one it was saved after."""
         barrier()   # a checkpoint rank 0 is writing is read once it is whole
         epoch = restore_checkpoint(path, self.step)
         self.start_epoch = epoch + 1

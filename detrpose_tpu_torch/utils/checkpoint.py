@@ -30,7 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .convert import load_torch_checkpoint
+from .convert import load_torch_checkpoint, read_checkpoint
 
 
 def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -80,6 +80,8 @@ def restore_variables(path: str, prefer_ema: bool = True) -> Dict[str, torch.Ten
 def _optimizer_matches(adamw: torch.optim.Optimizer, sd: dict) -> bool:
     """Whether ``sd`` is an AdamW state for exactly ``adamw``'s groups and
     parameter shapes (``load_state_dict`` checks the group sizes only)."""
+    if sd is None:
+        return False
     groups, saved = adamw.param_groups, sd.get("param_groups", [])
     if len(groups) != len(saved) or any(len(g["params"]) != len(s["params"])
                                         for g, s in zip(groups, saved)):
@@ -100,11 +102,13 @@ def restore_checkpoint(path: str, step) -> int:
 
     The model, the EMA and the counters always load. The AdamW state and
     accumulated gradients load when they fit the current optimiser; when
-    they do not (another freeze setting, other groups), the weights and EMA
-    are kept, the optimiser starts fresh, and a warning says so (reference:
-    src/solver/trainer.py:358-361; JAX's ``restore_checkpoint`` fallback).
+    they do not (another freeze setting, other groups) or the checkpoint has
+    none (an orbax directory of the JAX package, converted in memory by
+    ``read_checkpoint``), the weights and EMA are kept, the optimiser starts
+    fresh, and a warning says so (reference: src/solver/trainer.py:358-361;
+    JAX's ``restore_checkpoint`` fallback).
     """
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ckpt = read_checkpoint(path)
     model, opt = step.model, step.optimizer
     model.load_state_dict(ckpt["model"], strict=True)
     if step.ema is not None:
@@ -127,7 +131,9 @@ def restore_checkpoint(path: str, step) -> int:
     else:
         opt.adamw.state.clear()
         step.micro = 0
-        warnings.warn("the optimizer state in the checkpoint does not match the current "
-                      "optimizer; restored the weights and EMA only and kept a fresh "
-                      "optimizer (reference trainer.py:358-361)", stacklevel=2)
+        what = ("carries no optimizer state (AdamW's moments are not converted from "
+                "an orbax checkpoint)" if ckpt["optimizer"] is None else
+                "has an optimizer state that does not match the current optimizer")
+        warnings.warn(f"the checkpoint {what}; restored the weights and EMA only and kept "
+                      f"a fresh optimizer (reference trainer.py:358-361)", stacklevel=2)
     return int(ckpt["epoch"])

@@ -11,9 +11,10 @@ take the same rules; the port's modules carry their names.
 """
 from __future__ import annotations
 
+import os
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,10 +146,80 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.
     return OrderedDict((k, torch.tensor(v)) for k, v in sd.items())
 
 
+def convert_orbax(path: str) -> Dict[str, Any]:
+    """The JAX package's orbax checkpoint at ``path`` as a checkpoint dict of
+    this package (CPU float32 tensors).
+
+    ``detrpose_tpu/utils/checkpoint.py::save_checkpoint`` writes
+    ``{"state": TrainState, "epoch"}``: the TrainState's ``step``,
+    ``params``, ``batch_stats``, ``opt_state`` (optax's AdamW) and ``ema``
+    (``{"params", "batch_stats", "updates"}``, or None). It is read with
+    ``PyTreeCheckpointer().restore`` and no template, and the weights, the
+    BatchNorm statistics and the EMA stream go through ``from_jax_variables``
+    into the reference's layout that ``utils/checkpoint.py`` writes and reads:
+
+      model       the live weights and statistics
+      ema         {"module": the EMA's weights with its own statistics (the
+                  live ones when the EMA carries none, as JAX
+                  ``restore_variables`` does), "updates": its update count},
+                  or None
+      optimizer   None: AdamW's moments are not carried, so a resume keeps
+                  the weights, the EMA and the counters and starts a fresh
+                  optimiser (``restore_checkpoint``'s fallback, with a warning)
+      optimizer_updates   the optimiser steps taken: the EMA's update count
+                  (the EMA advances once an optimiser step), else the step
+                  count
+      step, micro, grads, epoch   the TrainState's step, 0, None, the epoch
+
+    orbax is imported here only; where it is not installed, convert the
+    checkpoint where it is (``tools/convert_orbax.py``) and pass the ``.pth``.
+    """
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is a directory, read as an orbax checkpoint of the JAX package, and "
+            f"reading it needs the orbax package, which is not installed here. Convert it "
+            f"where orbax is installed (python -m detrpose_tpu_torch.tools.convert_orbax "
+            f"{path} OUT.pth) and pass OUT.pth instead") from e
+    raw = ocp.PyTreeCheckpointer().restore(os.path.abspath(path))
+    rs = raw["state"]
+    live = {"params": rs["params"], "batch_stats": rs.get("batch_stats") or {}}
+    ema: Optional[dict] = rs.get("ema")
+    ema_out = None
+    if ema:
+        ema_vars = {"params": ema["params"],
+                    "batch_stats": ema.get("batch_stats") or live["batch_stats"]}
+        ema_out = {"module": dict(from_jax_variables(ema_vars)),
+                   "updates": int(np.asarray(ema.get("updates", 0)))}
+    step = int(np.asarray(rs.get("step", 0)))
+    return {
+        "model": dict(from_jax_variables(live)),
+        "ema": ema_out,
+        "optimizer": None,
+        "optimizer_updates": ema_out["updates"] if ema_out else step,
+        "step": step,
+        "micro": 0,
+        "grads": None,
+        "epoch": int(np.asarray(raw.get("epoch", 0))),
+    }
+
+
+def read_checkpoint(path: str) -> Any:
+    """What a checkpoint file holds (``torch.load`` onto the CPU), or, for a
+    directory, the JAX package's orbax checkpoint there converted in memory
+    (``convert_orbax``, which needs orbax)."""
+    if os.path.isdir(path):
+        return convert_orbax(path)
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
 def load_torch_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
-    """Load a reference zoo ``.pth`` into a flat state_dict of CPU tensors
-    (the EMA weights when present and ``prefer_ema``)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    """Load a reference zoo ``.pth``, a checkpoint of this package's Trainer
+    or the JAX package's orbax directory (``read_checkpoint``) into a flat
+    state_dict of CPU tensors (the EMA weights when present and
+    ``prefer_ema``)."""
+    ckpt = read_checkpoint(path)
     if isinstance(ckpt, dict):
         if prefer_ema and "ema" in ckpt and ckpt["ema"] is not None:
             sd = ckpt["ema"]["module"]
@@ -159,6 +230,43 @@ def load_torch_checkpoint(path: str, prefer_ema: bool = True) -> Dict[str, torch
     else:
         sd = ckpt
     return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def load_pretrained_backbone_encoder(sd: Mapping[str, torch.Tensor], model: torch.nn.Module
+                                     ) -> Dict[str, torch.Tensor]:
+    """Load the backbone and encoder of a reference state_dict into ``model``
+    and keep its decoder as initialised (transfer learning); returns what
+    was loaded, by key.
+
+    Counterpart of ``detrpose_tpu/utils/convert.py:202-243``; reference
+    semantics: ``Trainer.pretrain`` drops the ``decoder.*`` keys of a D-FINE
+    checkpoint and loads the rest (src/solver/trainer.py:444-451). Here the
+    ``decoder.*`` and ``transformer.*`` keys are dropped, and so are the
+    tensors this package recomputes (``DERIVED_KEY_PARTS``); every other key
+    must be one of ``model``'s backbone or encoder leaves (BatchNorm
+    statistics included) with its shape, and every such leaf must be given:
+    a key missing, left over or of another shape raises before anything is
+    loaded.
+    """
+    src = {k: v for k, v in drop_derived(sd).items()
+           if not k.startswith(("decoder.", "transformer."))}
+    own = {k: v for k, v in drop_derived(model.state_dict()).items()
+           if k.startswith(("backbone.", "encoder."))}
+    missing = sorted(set(own) - set(src))
+    unconsumed = sorted(set(src) - set(own))
+    if missing or unconsumed:
+        raise KeyError(f"backbone/encoder import: {len(missing)} keys missing, e.g. "
+                       f"{missing[:4]}; {len(unconsumed)} keys not in the model, e.g. "
+                       f"{unconsumed[:4]}")
+    bad = [(k, tuple(src[k].shape), tuple(v.shape)) for k, v in own.items()
+           if tuple(src[k].shape) != tuple(v.shape)]
+    if bad:
+        raise ValueError(f"backbone/encoder import: {len(bad)} shapes differ (key, given, "
+                         f"model), e.g. {bad[:4]}")
+    with torch.no_grad():
+        for k, v in own.items():
+            v.copy_(torch.as_tensor(src[k]))
+    return {k: src[k] for k in own}
 
 
 def drop_derived(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
