@@ -44,7 +44,9 @@ Phases (any failure exits non-zero before the last line is printed):
      "gather" (plain both ways), with equal matcher assignments, every loss
      term within 1e-4 relative and every parameter gradient within 1e-3 of
      its leaf's max|g| (of 1e-5 of the largest max|g| where a leaf's
-     gradient is 0 up to rounding), kernel #1 6 launches and 0;
+     gradient is 0 up to rounding), a leaf past it held to a float64 step
+     of the plain version as in phase 11 (b) and, here, within 1e-2 of its
+     float64 max|g| (of the same floor), kernel #1 6 launches and 0;
   6. main path 1, serving: build_pipeline("l") in bf16 answers 4 single
      images of different sizes and one batch of 32 at 640 px;
   7. the tools. Main path 2: tools/benchmark.py's model_info and bench_size
@@ -82,7 +84,9 @@ Phases (any failure exits non-zero before the last line is printed):
      accumulation 2): ms per micro-step and per optimiser step, images/s,
      peak memory, a traced split of two micro-steps (device busy, idle
      share, kernel families, the share of kernel #1's plain-version backward
-     by its profiler range, and that backward timed alone), and the
+     by its profiler range, and that backward timed alone; each phase of
+     the step, the update's clip, AdamW and EMA among them, by its host and
+     device time), and the
      matcher's time with the auction and with scipy;
   9. main path 5, the Trainer: synthetic COCO-format sets written as JPEG
      files (32 train and 16 val images of 640x480 and 480x640, 1-6
@@ -171,7 +175,24 @@ Phases (any failure exits non-zero before the last line is printed):
      stages; (e) tools/overfit.py, a short run of N at 160 px: its loss
      must fall, its losses and the evaluator's 10 stats of each stream be
      finite, kernel #1 3 launches a step and an evaluation batch;
- 13. print the kernel table, the card line and, last, the result line.
+ 13. main path 9, where training starts: (a) N and L built by build_model on
+     the card, every Linear and conv weight (the packed attention
+     in-projection too) held to flax's lecun-normal: within its truncation
+     bound 2 / 0.8796 / sqrt(fan_in), std * sqrt(fan_in) within 10% of 1
+     where it has 1024 entries or more, or zero where JAX zeroes it; every
+     bias zero but for the class prior and the circle-pattern offsets;
+     every Gate open at exactly 0.5 and every LQE head the identity on
+     random scores; (b) utils/convert.py::optimizer_from_optax on an
+     optax-shaped tree this script builds for N's parameters (flax layout,
+     the masked leaves None), with accumulation 1 and 2, the latter in the
+     middle of an optimiser step: the carried moments bit for bit, then one
+     micro-batch of the same gradient on the card and on the CPU from that
+     carried state, restored by restore_checkpoint with no warning, every
+     parameter and moment within 1e-6 of its leaf's max|x| of the CPU's,
+     and not what a fresh optimiser gives; (c) that carried N state resumed
+     in a training step on the card (bs 16, 160 px, bf16): its micro-batch
+     completes the optimiser step, kernel #1 3 launches;
+ 14. print the kernel table, the card line and, last, the result line.
 
 Whether it passes or fails, the script ends only after every process it
 started has: it adopts its descendants' orphans (a rank's data worker
@@ -187,6 +208,7 @@ import importlib.util
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -195,10 +217,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 from PIL import Image, ImageDraw
 
@@ -233,10 +257,17 @@ from detrpose_tpu_torch.tools.export import build_serve, export_model, load_expo
 from detrpose_tpu_torch.tools.infer import build_pipeline, detections
 from detrpose_tpu_torch.tools.infer import main as infer_main
 from detrpose_tpu_torch.tools.overfit import overfit
+from detrpose_tpu_torch.tools.phase_times import range_times
 from detrpose_tpu_torch.tools.train import main as train_main
 from detrpose_tpu_torch.train.matcher import hungarian_match
+from detrpose_tpu_torch.models.decoder import LQE
+from detrpose_tpu_torch.models.detrpose import TRUNCATED_STD
+from detrpose_tpu_torch.models.layers import Gate
 from detrpose_tpu_torch.train.optim import label_parameters, make_optimizer
-from detrpose_tpu_torch.utils.convert import load_pretrained_backbone_encoder, load_torch_checkpoint
+from detrpose_tpu_torch.utils.checkpoint import restore_checkpoint
+from detrpose_tpu_torch.utils.convert import (_EMBED_LEAVES, from_jax_variables,
+                                              load_pretrained_backbone_encoder,
+                                              load_torch_checkpoint, optimizer_from_optax)
 from detrpose_tpu_torch.utils.deploy import fuse_for_deploy
 from detrpose_tpu_torch.utils.measure import card_power_limit, cuda_time_ms, kernel_times, traced
 from detrpose_tpu_torch.utils.native import native_error
@@ -846,6 +877,38 @@ def branch_assignments(model, batch):
     return logits, kpts, hungarian_match(logits, kpts, batch["targets"], 17)
 
 
+def hold_to_float64(label, model, batch, off, ga, gg, cap=None, floor=0.0):
+    """An ill-conditioned float32 gradient: each leaf of ``off`` (past 1e-3
+    of its max|g| between kernel #1's run, ``ga``, and the plain version's,
+    ``gg``) held to one float64 step of ``model`` (set to the plain version),
+    no farther from it than twice the plain version's own float32 gradient
+    is (or 1e-3 of its max|g|), and with ``cap`` no farther than ``cap`` of
+    its float64 max|g| (at least ``floor``) whatever the plain version's
+    distance."""
+    model.double()
+    step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
+                           compute_dtype=torch.float32, use_ema=False)
+    step(dict(batch, images=batch["images"].double()))
+    gw = {k: model.get_parameter(k).grad for k in off}
+    worst, capped = [], []
+    for k in off:
+        e_auto = (ga[k].double() - gw[k]).abs().max().item()
+        e_plain = (gg[k].double() - gw[k]).abs().max().item()
+        g64 = max(gw[k].abs().max().item(), floor)
+        worst.append((e_auto / max(1e-3 * g64, 2 * e_plain), k, e_auto, e_plain))
+        capped.append((e_auto / g64 if g64 else math.inf, k))
+    worst.sort(reverse=True)
+    capped.sort(reverse=True)
+    print(f"{label}: {len(off)} leaves past 1e-3 held to a float64 plain step: worst "
+          f"max|auto - f64| / max(1e-3 max|g|, 2 max|gather - f64|) {worst[0][0]:.3f} at "
+          f"{worst[0][1]} (auto {worst[0][2]:.3e}, gather {worst[0][3]:.3e} off float64; "
+          f"limit 1); worst max|auto - f64| / max|g64| {capped[0][0]:.3e} at {capped[0][1]} "
+          f"(limit {'none' if cap is None else cap}; max|g64| at least {floor:.3e})")
+    if worst[0][0] > 1.0 or (cap is not None and capped[0][0] > cap):
+        fail(f"{label} train step: the gradients differ between 'auto' and 'gather'")
+    return worst
+
+
 def check_train_backends():
     """Main path 4's check: one L training micro-step, bs 2, 640 px, float32
     (TF32 off), through kernel #1 ("auto") and the plain version ("gather"),
@@ -896,8 +959,12 @@ def check_train_backends():
           f"max|diff| / max|g| " + ", ".join(f"{e:.3e} at {n} (max|g| {m:.3e})"
                                              for e, n, m in errs[:3])
           + f" (limit 1e-3; floor 1e-5 of the largest |g| {top:.3e})")
-    if not errs[0][0] <= 1e-3:
-        fail("L train step: the gradients differ between 'auto' and 'gather'")
+    off = [n for e, n, _ in errs if e > 1e-3]
+    if off:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        hold_to_float64("[5] L", l_train_model("gather"), batch, off, ga, gg, cap=1e-2,
+                        floor=1e-5 * top)
+        torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
 
 
@@ -993,7 +1060,8 @@ def train_time_split(step, batch, n=TRAIN_ACCUM):
     """``n`` micro-steps (one optimiser step) timed with CUDA events, then
     ``n`` more traced after ``n`` under the profiler's warm-up: the device's busy time by kernel family, its idle
     share against the untraced time, the device time of the kernels inside
-    kernel #1's backward range, and the host's time in each phase of the step."""
+    kernel #1's backward range, and the host's and the device's time in each
+    phase of the step (``tools/phase_times.py::range_times``)."""
     from torch.autograd import DeviceType
 
     wall = cuda_time_ms(lambda: step(batch), iters=n, warmup=n) * n
@@ -1016,21 +1084,18 @@ def train_time_split(step, batch, n=TRAIN_ACCUM):
                    "other")
         split[fam] = split.get(fam, 0.0) + ms
     busy = sum(split.values())
-    # the kernels inside the backward range's span on the device (one stream)
-    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in gpu
-             if annotation(e) and e.name == BACKWARD_RANGE]
-    bwd_ms = sum(e.time_range.elapsed_us() for e in gpu if not annotation(e) and any(
-        a <= e.time_range.start < b for a, b in spans)) / 1e3
-    host = {e.key: e.cpu_time_total / 1e3 for e in events
-            if e.device_type == DeviceType.CPU and e.key in PHASES}
+    # the kernels inside the backward range's span, and each phase's, on the
+    # device (one stream)
+    ranges = range_times(prof, (BACKWARD_RANGE,) + tuple(PHASES))
+    bwd = ranges.get(BACKWARD_RANGE, {"device_ms": 0.0, "spans": 0})
     if busy > wall:
         fail(f"L train step: the traced kernels' device time {busy:.3f} ms exceeds the "
              f"step's {wall:.3f} ms between CUDA events: kernels miscounted")
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
             "launches": sum(k[2] for k in kernels), "families_ms": split,
-            "msda_backward_ms": bwd_ms, "msda_backward_calls": len(spans),
-            "top_kernels": sorted(kernels, key=lambda k: -k[1])[:8], "host_ms_by_phase": host}
+            "msda_backward_ms": bwd["device_ms"], "msda_backward_calls": bwd["spans"],
+            "top_kernels": sorted(kernels, key=lambda k: -k[1])[:8],
+            "ms_by_phase": {p: ranges[p] for p in PHASES if p in ranges}}
 
 
 def check_train_op(g):
@@ -2068,29 +2133,9 @@ def check_train_variant(name, flags, batch):
         fail(f"{name} train step: the gradients differ between 'auto' and 'gather'")
     off = [k for e, k in errs if e > 1e-3]
     if off:
-        # an ill-conditioned float32 gradient: held to a float64 step of the
-        # plain version, no farther from it than twice the plain version's
-        # own float32 gradient is (or 1e-3 of its max|g|)
-        model.double()
         set_backend(model, "gather")
         set_energy_backend(model, "gather")
-        step = make_train_step(model, make_optimizer(model, grad_accum_steps=2), 17,
-                               compute_dtype=torch.float32, use_ema=False)
-        step(dict(batch, images=batch["images"].double()))
-        gw = {k: model.get_parameter(k).grad for k in off}
-        worst = []
-        for k in off:
-            e_auto = (ga[k].double() - gw[k]).abs().max().item()
-            e_plain = (gg[k].double() - gw[k]).abs().max().item()
-            worst.append((e_auto / max(1e-3 * gw[k].abs().max().item(), 2 * e_plain), k,
-                          e_auto, e_plain))
-        worst.sort(reverse=True)
-        print(f"[11] {name}: {len(off)} leaves past 1e-3 held to a float64 plain step: worst "
-              f"max|auto - f64| / max(1e-3 max|g|, 2 max|gather - f64|) {worst[0][0]:.3f} at "
-              f"{worst[0][1]} (auto {worst[0][2]:.3e}, gather {worst[0][3]:.3e} off float64; "
-              f"limit 1)")
-        if worst[0][0] > 1.0:
-            fail(f"{name} train step: the gradients differ between 'auto' and 'gather'")
+        hold_to_float64(f"[11] {name}", model, batch, off, ga, gg)
     return launched
 
 
@@ -2400,6 +2445,258 @@ def weights_bench_path(card):
     return total, numbers
 
 
+# ---- main path 9: where training starts -----------------------------------
+# the heads JAX inits to zero kernels (decoder.py:152-201, 300, 524, 639;
+# layers.py:364; transformer.py:121) and the biases it inits to constants
+# (the class prior, decoder.py:532 and transformer.py:106-108; the circle
+# pattern, decoder.py:45-68); every other Linear and conv is flax's default
+ZERO_KERNELS = re.compile(r"(gateway\.gate|cross_attn\.(sampling_offsets|attention_weights)"
+                          r"|reg_conf\.layers\.1|enc_pose_embed\.layers\.3"
+                          r"|pre_pose_embed\.layers\.2|pose_embed\.\d+\.layers\.2)$")
+SET_BIASES = re.compile(r"(enc_out_class_embed|class_embed\.\d+|cross_attn\.sampling_offsets)$")
+CARRY_COUNT = 7           # the carried optax state's optimiser steps
+RESUME_BATCH = 16         # kernel #1 at PATH8_SHAPES["N160t16"], which phase 3 holds
+
+
+def init_path(size, card):
+    """Phase 13 (a): ``size`` built on the card, its leaves against flax's
+    initializers, the Gate and LQE invariants; returns a summary."""
+    model = build_model(model_config(size))
+    layers, bad = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            layers.append((name, m.weight, m.weight[0].numel(), m.bias))
+        elif isinstance(m, nn.MultiheadAttention):
+            layers.append((f"{name}.in_proj", m.in_proj_weight, m.embed_dim, m.in_proj_bias))
+    zero = drawn = 0
+    for name, w, fan_in, bias in layers:
+        w = w.detach().double()
+        if ZERO_KERNELS.search(name):
+            zero += 1
+            if w.abs().max() != 0:
+                bad.append(f"{name}: a kernel JAX zeroes is not zero")
+        else:
+            drawn += 1
+            bound = 2.0 / TRUNCATED_STD / math.sqrt(fan_in)
+            if w.abs().max() > bound * (1 + 1e-6):
+                bad.append(f"{name}: max|w| {w.abs().max():.4g} past {bound:.4g}")
+            if w.numel() >= 1024 and not 0.9 <= w.std().item() * math.sqrt(fan_in) <= 1.1:
+                bad.append(f"{name}: std * sqrt(fan_in) {w.std().item() * math.sqrt(fan_in):.4f}")
+        if bias is not None and not SET_BIASES.search(name) and bias.abs().max() != 0:
+            bad.append(f"{name}: bias not zero")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    gates = [m for m in model.modules() if isinstance(m, Gate)]
+    lqes = [m for m in model.modules() if isinstance(m, LQE)]
+    d, K = gates[0].norm.normalized_shape[0], model_config(size).num_body_points
+    x = torch.randn(2, 9, 2 * d, device="cuda", generator=g)
+    scores = torch.randn(2, 9, 2, device="cuda", generator=g)
+    poses = torch.rand(2, 9, K, 2, device="cuda", generator=g)
+    feat = torch.randn(2, 256, 20, 20, device="cuda", generator=g)
+    with torch.no_grad():
+        for m in gates:
+            if not (torch.sigmoid(m.gate(x)) == 0.5).all():
+                bad.append("a Gate does not open at 0.5")
+        for m in lqes:
+            if not torch.equal(m(scores, poses, feat), scores):
+                bad.append("an LQE head is not the identity on the scores")
+    if bad:
+        fail(f"the {size.upper()} init on the card: {bad[:8]}")
+    print(f"[13] (a) {size.upper()} built on the card: {drawn} Linear/conv weights within "
+          f"lecun-normal's bound and scale, {zero} zero kernels where JAX zeroes them, every "
+          f"bias zero but the class prior and the offsets; {len(gates)} Gates open at 0.5, "
+          f"{len(lqes)} LQE heads the identity; on {card}")
+    return {"drawn": drawn, "zero": zero, "gates": len(gates), "lqe": len(lqes)}
+
+
+def flax_leaves(name, t):
+    """(flax-style path, array in flax's layout) pairs that
+    ``from_jax_variables`` maps back onto the port's leaf ``name``."""
+    *mods, leaf = name.split(".")
+    arr = t.detach().cpu().numpy()
+    if leaf in ("in_proj_weight", "in_proj_bias"):
+        return [(tuple(mods) + (proj, "kernel" if leaf == "in_proj_weight" else "bias"),
+                 part.T if leaf == "in_proj_weight" else part)
+                for proj, part in zip(("q_proj", "k_proj", "v_proj"), np.split(arr, 3))]
+    if mods and mods[-1] == "lab":
+        return [(tuple(mods[:-1]) + ("lab_" + leaf,), arr)]
+    if leaf == "weight" and mods[-1] in _EMBED_LEAVES:
+        return [(tuple(mods), arr)]
+    if leaf == "weight":
+        if arr.ndim == 4:
+            return [(tuple(mods) + ("kernel",), arr.transpose(2, 3, 1, 0))]
+        return [(tuple(mods) + ("kernel" if arr.ndim == 2 else "scale",),
+                 arr.T if arr.ndim == 2 else arr)]
+    return [(tuple(mods) + (leaf,), arr)]
+
+
+
+def flax_tree(tensors, keep=lambda name: True):
+    """{port name: tensor} as a nested flax-layout tree; leaves of the names
+    ``keep`` refuses are None, as a restore gives optax's masked nodes."""
+    tree = {}
+    for name, t in tensors.items():
+        for path, arr in flax_leaves(name, t):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = arr if keep(name) else None
+    return tree
+
+
+def optax_state(model, accum, rng):
+    """An optax state of JAX make_optimizer's transform for ``model``'s
+    parameters as ``PyTreeCheckpointer().restore`` gives it (no template):
+    CARRY_COUNT optimiser steps, and with ``accum`` 2 one micro-batch more.
+    Returns (state, {port name: (mu, nu)}, the accumulated gradients)."""
+    labels = label_parameters(model)
+    named = dict(model.named_parameters())
+    moments = {n: (torch.from_numpy(rng.normal(0, 1e-3, p.shape).astype(np.float32)),
+                   torch.from_numpy(rng.uniform(1e-8, 1e-6, p.shape).astype(np.float32)))
+               for n, p in named.items() if labels[n] != "frozen"}
+
+    def label_state(label):
+        mine = lambda n: labels[n] == label
+        zeros = {n: torch.zeros(p.shape) for n, p in named.items()}
+        mu = flax_tree({**zeros, **{n: m[0] for n, m in moments.items()}}, mine)
+        nu = flax_tree({**zeros, **{n: m[1] for n, m in moments.items()}}, mine)
+        return {"inner_state": [{"count": np.int32(CARRY_COUNT), "mu": mu, "nu": nu}, None,
+                                {"count": np.int32(CARRY_COUNT)}]}
+
+    part = {"inner_states": {"main": label_state("main"), "backbone": label_state("backbone"),
+                             "frozen": {"inner_state": None}}}
+    if accum == 1:
+        return [None, part], moments, None
+    acc = {n: torch.from_numpy(rng.normal(0, 1, p.shape).astype(np.float32))
+           for n, p in named.items()}
+    return ({"mini_step": np.int32(1), "gradient_step": np.int32(CARRY_COUNT),
+             "inner_opt_state": [None, None, part], "acc_grads": flax_tree(acc),
+             "skip_state": []}, moments, acc)
+
+
+def carried_step(device, ckpt_path, accum, grad=None, fresh=False):
+    """N from the seed on ``device``, restored from ``ckpt_path`` (no warning)
+    or with a fresh optimiser; with ``grad``, one micro-batch of it, which
+    completes an optimiser step. Returns the TrainStep."""
+    model = build_model(model_config("n"), device=device,
+                        generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(model, make_optimizer(model, grad_accum_steps=accum), 17,
+                           device=device)
+    if not fresh:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            restore_checkpoint(ckpt_path, step)
+        if [w for w in caught if "optimizer" in str(w.message)]:
+            fail(f"the carried optax state (accumulation {accum}) did not fit: "
+                 f"{[str(w.message) for w in caught]}")
+    if grad is not None:
+        for n, p in step.model.named_parameters():
+            g = grad[n].to(device)
+            p.grad = g.clone() if p.grad is None else p.grad + g
+        step.micro += 1
+        if step.micro == accum:
+            step.optimizer.step()
+            step.micro = 0
+    return step
+
+
+def carry_path(card, root):
+    """Phase 13 (b), (c): optax's state carried onto the card; returns the
+    launches and a summary."""
+    rng = np.random.default_rng(SEED)
+    cpu_model = build_model(model_config("n"), device="cpu",
+                            generator=torch.Generator().manual_seed(SEED))
+    params = dict(cpu_model.named_parameters())
+    back = from_jax_variables({"params": flax_tree(params)})
+    if set(back) != set(params) or any(not torch.equal(back[n], p.detach())
+                                       for n, p in params.items()):
+        fail("the script's flax-layout tree of N's parameters does not map back onto them")
+    out, paths = {}, {}
+    for accum in (1, 2):
+        state, moments, acc = optax_state(cpu_model, accum, rng)
+        fields = optimizer_from_optax(state)
+        sd = fields["optimizer"]
+        carried = {name: (sd["state"][i]["exp_avg"], sd["state"][i]["exp_avg_sq"],
+                          sd["state"][i]["step"].item())
+                   for grp in sd["param_groups"]
+                   for i, name in zip(grp["params"], grp["param_names"])}
+        if set(carried) != set(moments) or any(
+                not (torch.equal(c[0], moments[n][0]) and torch.equal(c[1], moments[n][1])
+                     and c[2] == CARRY_COUNT) for n, c in carried.items()):
+            fail(f"optimizer_from_optax (accumulation {accum}) did not carry the moments")
+        if fields["optimizer_updates"] != CARRY_COUNT or fields["micro"] != accum - 1 or (
+                accum > 1 and any(not torch.equal(fields["grads"][n], acc[n]) for n in acc)):
+            fail(f"optimizer_from_optax (accumulation {accum}): counts {fields['optimizer_updates']}"
+                 f", micro {fields['micro']}")
+        path = os.path.join(root, f"carried_accum{accum}.pth")
+        torch.save({"model": cpu_model.state_dict(), "ema": None, "step": CARRY_COUNT * accum,
+                    "epoch": 0, **fields}, path)
+        paths[accum] = path
+        grad = {n: torch.from_numpy(rng.normal(0, 1, p.shape).astype(np.float32))
+                for n, p in params.items()}
+        on_card = carried_step("cuda", path, accum, grad)
+        on_cpu = carried_step("cpu", path, accum, grad)
+        fresh = carried_step("cuda", path, accum, grad, fresh=True)
+        worst, apart = 0.0, 0
+        card_state = {n: on_card.optimizer.adamw.state[p]
+                      for n, p in on_card.model.named_parameters()
+                      if p in on_card.optimizer.adamw.state}
+        cpu_state = {n: on_cpu.optimizer.adamw.state[p]
+                     for n, p in on_cpu.model.named_parameters()
+                     if p in on_cpu.optimizer.adamw.state}
+        fresh_p = dict(fresh.model.named_parameters())
+        card_p = dict(on_card.model.named_parameters())
+        for n, p in on_cpu.model.named_parameters():
+            pairs = [(card_p[n], p)]
+            if n in cpu_state:
+                pairs += [(card_state[n][k], cpu_state[n][k]) for k in ("exp_avg", "exp_avg_sq")]
+                apart += not torch.equal(fresh_p[n].detach().cpu(), p.detach())
+            for a, b in pairs:
+                b = b.detach()
+                err = (a.detach().cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                worst = max(worst, err)
+        if worst > 1e-6 or apart < len(cpu_state) // 2 or set(card_state) != set(carried) \
+                or on_card.optimizer.updates != CARRY_COUNT + 1:
+            fail(f"the carried step (accumulation {accum}): card against CPU {worst:.3e} of "
+                 f"max|x| (limit 1e-6); {apart} of {len(cpu_state)} parameters apart from a "
+                 f"fresh optimiser's step; updates {on_card.optimizer.updates}")
+        out[accum] = {"max_rel_err": worst, "apart_from_fresh": apart, "carried": len(cpu_state)}
+        print(f"[13] (b) optax state carried into N's AdamW (accumulation {accum}, "
+              f"{len(cpu_state)} parameters with state, {CARRY_COUNT} steps"
+              f"{', one micro-batch into the next' if accum > 1 else ''}): moments bit for bit; "
+              f"one more micro-batch on the card against the CPU: parameters and moments within "
+              f"{worst:.3e} of max|x| (limit 1e-6), {apart} parameters apart from a fresh "
+              f"optimiser's step; on {card}")
+        del on_card, on_cpu, fresh
+    # (c) the mid-step state resumed in a training step on the card
+    step = carried_step("cuda", paths[2], 2)
+    batch = synthetic_train_batch(RESUME_BATCH, 160, 17, 60, "cuda", seed=SEED)
+    zero_launch_counts()
+    m = step(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not m["finite"] or step.micro != 0 or step.optimizer.updates != CARRY_COUNT + 1:
+        fail(f"the resumed step: finite {m['finite']}, micro {step.micro}, updates "
+             f"{step.optimizer.updates}")
+    expect_launches("the resumed N training step", counts, N_LAYERS)
+    print(f"[13] (c) the carried mid-step state resumed on the card: one N micro-batch (bs "
+          f"{RESUME_BATCH}, 160 px, bf16) completed optimiser step {CARRY_COUNT + 1}, loss "
+          f"{m['loss_total'].item():.3f}; kernel #1 {counts['msda_fwd']} launches; on {card}")
+    out["resumed_loss"] = m["loss_total"].item()
+    return counts, out
+
+
+def training_start_path(card):
+    """Main path 9 (phase 13): returns the launches and the numbers."""
+    t_phase = time.perf_counter()
+    numbers = {"init": {size: init_path(size, card) for size in ("n", "l")}}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        counts, numbers["carry"] = carry_path(card, root)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"[13] main path 9: kernel launches {counts}; {numbers['seconds']:.1f} s")
+    return counts, numbers
+
+
 def main():
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -2631,8 +2928,9 @@ def main():
                                                       key=lambda kv: -kv[1])) + f"; on {card}")
     for name, ms, count in split["top_kernels"]:
         print(f"[8]   {ms:8.3f} ms  x{count:<5d} {name[:90]}")
-    print(f"[8] the host's time in the traced micro-steps by phase: " + ", ".join(
-        f"{name} {ms:.3f} ms" for name, ms in split["host_ms_by_phase"].items()) + f"; on {card}")
+    print(f"[8] the traced micro-steps by phase, host / device time: " + ", ".join(
+        f"{name} {t['host_ms']:.3f} / {t['device_ms']:.3f} ms" for name, t in
+        split["ms_by_phase"].items()) + f"; on {card}")
     bwd_alone = msda_backward_alone(g)
     print(f"[8] kernel #1's op at the L train shapes (bs {TRAIN_BATCH}, 124 x 18 queries, bf16): "
           f"forward {bwd_alone[0]:.4f} ms, its plain-version backward {bwd_alone[1]:.4f} ms a "
@@ -2679,7 +2977,12 @@ def main():
     counts_path8, path8_numbers = weights_bench_path(card)
     total = {k: total[k] + counts_path8[k] for k in KERNELS}
 
-    # ---- 13. report
+    # ---- 13. main path 9: the init and the carried optax state
+    torch.cuda.empty_cache()
+    counts_path9, path9_numbers = training_start_path(card)
+    total = {k: total[k] + counts_path9[k] for k in KERNELS}
+
+    # ---- 14. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
                             "detrpose_tpu/ops/pallas/msda_sep.py:59"),
                "msda_perquery": ("detrpose_tpu_torch/csrc/msda_perquery.cu",
@@ -2712,7 +3015,8 @@ def main():
                                                             "backward": bwd_alone[1]},
                                 "matcher_ms": matcher_ms},
                       "trainer": trainer_numbers, "data_parallel": dp_numbers,
-                      "variants": variant_numbers, "path8": path8_numbers}))
+                      "variants": variant_numbers, "path8": path8_numbers,
+                      "path9": path9_numbers}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": sources[name][0],
         "replaces": sources[name][1], "launches": total[name],

@@ -158,8 +158,10 @@ class MSDeformAttn(nn.Module):
         self.init_heads_()
 
     def init_heads_(self) -> None:
-        """The reference's fixed inits: zero projections, the circle-pattern
-        offset bias, the global gate's bias and the modulation bias at 2.0."""
+        """JAX's fixed inits (decoder.py:152-201, 248-263): zero projections,
+        the circle-pattern offset bias, the global gate's bias and the
+        modulation bias at 2.0; ``global_proj`` and ``grid_fuse_proj`` keep
+        the lecun kernels and zero biases of ``init_parameters``."""
         nn.init.zeros_(self.sampling_offsets.weight)
         with torch.no_grad():
             self.sampling_offsets.bias.copy_(msda_offset_bias(
@@ -283,8 +285,11 @@ class LQE(nn.Module):
         self.init_heads_()
 
     def init_heads_(self) -> None:
-        """Zero last layer, so the head starts as the identity on the scores."""
+        """Zero last kernel and bias (JAX decoder.py:300, ``zero_init_last``
+        with flax's zero bias), so the head starts as the identity on the
+        scores."""
         nn.init.zeros_(self.reg_conf.layers[-1].weight)
+        nn.init.zeros_(self.reg_conf.layers[-1].bias)
 
     def forward(self, scores: torch.Tensor, pred_poses: torch.Tensor,
                 feat: torch.Tensor) -> torch.Tensor:

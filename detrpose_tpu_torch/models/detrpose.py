@@ -19,24 +19,41 @@ from .layers import FastKANLayer
 from .transformer import Transformer
 
 
-def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every weight of ``model`` from ``generator``, then apply the
-    reference's fixed head inits (``init_heads_`` of the modules that have one).
+# flax's lecun_normal (``variance_scaling(1, "fan_in", "truncated_normal")``):
+# a normal cut at +-2 sigma, its sigma raised by 1 / std(N(0, 1) cut at +-2)
+# so that the drawn values have std 1/sqrt(fan_in)
+TRUNCATED_STD = 0.87962566103423978
 
-    Linear and conv layers draw from PyTorch's default uniform(+-1/sqrt(fan_in)),
-    the packed attention projections and the embeddings from xavier-uniform,
-    FastKAN's coefficients from normal(1e-2);
-    norms keep unit scale and zero shift, BatchNorm statistics mean 0, var 1.
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Fill ``w`` from flax's default kernel init for ``fan_in`` inputs."""
+    std = 1.0 / math.sqrt(fan_in) / TRUNCATED_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every weight of ``model`` from ``generator`` as JAX ``model.init``
+    draws it, then apply the fixed head inits (``init_heads_`` of the modules
+    that have one).
+
+    Linear and conv weights (attention output projections included) draw from
+    flax's lecun-normal with fan_in = ``w[0].numel()``, which is flax's
+    (kh * kw * in / groups for a conv); their biases are zero, flax's default.
+    The packed attention in-projection (3d, d) is JAX's three (d, d) lecun
+    kernels stacked, with zero bias. The query and denoising embeddings draw
+    from xavier-uniform (JAX transformer.py:135-141), FastKAN's coefficients
+    from normal(``init_scale``). Norms keep unit scale and zero shift,
+    BatchNorm statistics mean 0 and var 1, and the LAB affine, the
+    modulation bias and the energy step size their constructor values.
     """
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                bound = 1.0 / math.sqrt(m.weight[0].numel())
-                m.weight.uniform_(-bound, bound, generator=generator)
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
                 if m.bias is not None:
-                    m.bias.uniform_(-bound, bound, generator=generator)
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, nn.MultiheadAttention):
-                nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
+                lecun_normal_(m.in_proj_weight, m.embed_dim, generator)
                 nn.init.zeros_(m.in_proj_bias)
             elif isinstance(m, nn.Embedding):
                 nn.init.xavier_uniform_(m.weight, generator=generator)

@@ -353,8 +353,10 @@ class Gate(nn.Module):
         self.init_heads_()
 
     def init_heads_(self) -> None:
-        """Zero gate kernel: both gates start at exactly 0.5 (transformer.py:226-228)."""
+        """Zero gate kernel and bias (JAX layers.py:363-365, flax's zero
+        bias): both gates start at exactly 0.5 (transformer.py:226-228)."""
         nn.init.zeros_(self.gate.weight)
+        nn.init.zeros_(self.gate.bias)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         g1, g2 = torch.sigmoid(self.gate(torch.cat([x1, x2], dim=-1))).chunk(2, dim=-1)

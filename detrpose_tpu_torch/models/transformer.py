@@ -95,8 +95,9 @@ class Transformer(nn.Module):
         self.init_heads_()
 
     def init_heads_(self) -> None:
-        """The reference's head init: focal prior on the class biases and
-        zero last layers on the pose regressors."""
+        """JAX's head inits (transformer.py:106-108, 121; decoder.py:524,
+        532, 639): the focal prior on the class biases, beside lecun
+        kernels, and zero last kernels and biases on the pose regressors."""
         nn.init.constant_(self.enc_out_class_embed.bias, CLASS_BIAS_PRIOR)
         for head in self.class_embed:
             nn.init.constant_(head.bias, CLASS_BIAS_PRIOR)

@@ -1,6 +1,8 @@
 """Convert an orbax checkpoint of the JAX package into a ``.pth`` this
 package reads (``utils/convert.py::convert_orbax``: the live weights and
-statistics, the EMA stream, the counters; AdamW's moments are not carried).
+statistics, the EMA stream, the counters, and AdamW's moments, step counts
+and partial gradient accumulation from the optax state, through
+``optimizer_from_optax``).
 
 ``tools/infer.py``, ``tools/export.py``, ``Trainer.resume`` and
 ``tools/train.py --resume`` convert an orbax directory in memory, which
@@ -27,6 +29,8 @@ def main(argv=None) -> None:
     torch.save(ckpt, args.out)
     print(f"{args.src} -> {args.out} ({len(ckpt['model'])} tensors, EMA "
           f"{'with ' + str(ckpt['ema']['updates']) + ' updates' if ckpt['ema'] else 'none'}, "
+          f"AdamW state {'carried' if ckpt['optimizer'] else 'left out'} at "
+          f"{ckpt['optimizer_updates']} updates and {ckpt['micro']} accumulated micro-batches, "
           f"epoch {ckpt['epoch']})")
 
 

@@ -1,6 +1,7 @@
 """Optimiser, learning-rate schedule and EMA.
 
-Counterpart of ``detrpose_tpu/train/optim.py``. Reference semantics:
+Counterpart of ``detrpose_tpu/train/optim.py``, whose optax arithmetic the
+AdamW step follows (``AdamW``). Reference semantics:
   * AdamW lr 1e-4, betas (0.9, 0.999), weight decay 1e-4, with the backbone in
     a group of its own at lr 1e-5 (src/misc/get_param_dicts.py:8-40);
   * MultiStepLR (milestones in optimiser steps, gamma) with an optional
@@ -87,15 +88,71 @@ def label_parameters(model: nn.Module, freeze_backbone_norm: bool = True,
     return labels
 
 
+class AdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW``'s groups and state (``step``, ``exp_avg``,
+    ``exp_avg_sq``, so its state_dict), stepped in optax ``adamw``'s float32
+    arithmetic, JAX ``make_optimizer``'s: m = (1 - b1) g + b1 m and
+    v = (1 - b2) g^2 + b2 v, their bias corrections 1 - b ** t in float32,
+    u = (m / bc1) / (sqrt(v / bc2) + eps) + wd p, and p = p + (-lr) u.
+    torch's own step takes the bias corrections in float64 and decays p
+    first, which moves an update by up to ~1e-5 relative from optax's in the
+    first thousand steps (optax's float32 1 - b2 ** t is that far from exact).
+    The moments update in place as torch's foreach step does them (``lerp_``,
+    ``addcmul_``), within a unit in the last place of optax's; a step makes
+    two temporaries the size of the parameters. Only the hyperparameters
+    above are taken: the step has no amsgrad, maximize, fused or capturable
+    form."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 1e-2):
+        super().__init__(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(
+                        step=torch.tensor(0.0, dtype=torch.float32),
+                        exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                        exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format))
+            state = [self.state[p] for p in params]
+            steps = [st["step"] for st in state]
+            torch._foreach_add_(steps, 1)
+            t = torch.stack(steps).float().cpu()
+            (b1, b2), grads = group["betas"], [p.grad for p in params]
+            bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** t).tolist()
+            bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** t).tolist()
+            mus, nus = [st["exp_avg"] for st in state], [st["exp_avg_sq"] for st in state]
+            torch._foreach_lerp_(mus, grads, 1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+            den = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(mus, bc1)
+            torch._foreach_div_(upd, den)
+            del den
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, upd, alpha=-group["lr"])
+        return None
+
+
 class TrainOptimizer:
-    """``torch.optim.AdamW`` over the "main" and "backbone" groups, with their
+    """``AdamW`` over the "main" and "backbone" groups, with their
     schedules, the global-norm clip and the accumulation count.
 
     ``step()`` sets each group's lr for this optimiser step, clips the summed
     gradients of every parameter, steps AdamW and clears the gradients;
     ``updates`` counts the steps taken."""
 
-    def __init__(self, adamw: torch.optim.AdamW, schedules: List[Callable[[int], float]],
+    def __init__(self, adamw: AdamW, schedules: List[Callable[[int], float]],
                  params: List[nn.Parameter], clip_max_norm: float, grad_accum_steps: int):
         self.adamw = adamw
         self.schedules = schedules
@@ -107,12 +164,15 @@ class TrainOptimizer:
     @torch.no_grad()
     def clip_(self) -> Optional[torch.Tensor]:
         """Scale every gradient by max_norm / norm where the global norm
-        exceeds max_norm (optax ``clip_by_global_norm``); returns the norm."""
+        exceeds max_norm (optax ``clip_by_global_norm``); returns the norm
+        (float32). The norms accumulate in float64: a float32 norm of a large
+        tensor on the CPU is off by a few 1e-6, where optax's global norm
+        is within 2e-7."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if not grads or not self.clip_max_norm or self.clip_max_norm <= 0:
             return None
         norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)).float())
+            torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float64))).float()
         factor = torch.where(norm < self.clip_max_norm, 1.0, self.clip_max_norm / norm)
         torch._foreach_mul_(grads, factor)
         return norm
@@ -146,8 +206,7 @@ def make_optimizer(model: nn.Module, base_lr: float = 1e-4, backbone_lr: float =
     groups = [{"params": [p for n, p in named.items() if labels[n] == g], "lr": lr}
               for g, lr in (("main", base_lr), ("backbone", backbone_lr))]
     groups = [g for g in groups if g["params"]]
-    adamw = torch.optim.AdamW(groups, lr=base_lr, betas=tuple(betas), eps=1e-8,
-                              weight_decay=weight_decay)
+    adamw = AdamW(groups, lr=base_lr, betas=tuple(betas), eps=1e-8, weight_decay=weight_decay)
     schedules = [multistep_schedule(g["lr"], milestones, gamma, warmup_steps)
                  for g in groups]
     return TrainOptimizer(adamw, schedules, list(named.values()), clip_max_norm,

@@ -77,23 +77,40 @@ def restore_variables(path: str, prefer_ema: bool = True) -> Dict[str, torch.Ten
     return load_torch_checkpoint(path, prefer_ema=prefer_ema)
 
 
-def _optimizer_matches(adamw: torch.optim.Optimizer, sd: dict) -> bool:
-    """Whether ``sd`` is an AdamW state for exactly ``adamw``'s groups and
-    parameter shapes (``load_state_dict`` checks the group sizes only)."""
+def _optimizer_state_for(opt, model, sd: Optional[dict]) -> Optional[dict]:
+    """``sd`` as a state_dict of exactly ``opt.adamw``'s groups and parameter
+    shapes, or None where it is not one (``load_state_dict`` checks the group
+    sizes only). A state whose groups name their parameters
+    (``utils/convert.py::optimizer_from_optax``) is mapped by name onto the
+    groups' order, and fits only where each group holds the same names."""
     if sd is None:
-        return False
-    groups, saved = adamw.param_groups, sd.get("param_groups", [])
+        return None
+    groups, saved = opt.adamw.param_groups, sd.get("param_groups", [])
     if len(groups) != len(saved) or any(len(g["params"]) != len(s["params"])
                                         for g, s in zip(groups, saved)):
-        return False
+        return None
+    if all("param_names" in s for s in saved):
+        name_of = {id(p): n for n, p in model.named_parameters()}
+        state, out = {}, []
+        for g, s in zip(groups, saved):
+            index = dict(zip(s["param_names"], s["params"]))
+            names = [name_of[id(p)] for p in g["params"]]
+            if set(names) != set(index):
+                return None
+            params = list(range(len(state), len(state) + len(names)))
+            for i, n in zip(params, names):
+                if index[n] in sd["state"]:
+                    state[i] = sd["state"][index[n]]
+            out.append({k: v for k, v in s.items() if k != "param_names"} | {"params": params})
+        sd = {"state": state, "param_groups": out}
     params = [p for g in groups for p in g["params"]]
-    ids = [i for s in saved for i in s["params"]]
+    ids = [i for s in sd["param_groups"] for i in s["params"]]
     for p, i in zip(params, ids):
         st = sd.get("state", {}).get(i)
         if st is not None and any(torch.is_tensor(v) and v.dim() and v.shape != p.shape
                                   for v in st.values()):
-            return False
-    return True
+            return None
+    return sd
 
 
 def restore_checkpoint(path: str, step) -> int:
@@ -101,12 +118,14 @@ def restore_checkpoint(path: str, step) -> int:
     the epoch it was saved after.
 
     The model, the EMA and the counters always load. The AdamW state and
-    accumulated gradients load when they fit the current optimiser; when
-    they do not (another freeze setting, other groups) or the checkpoint has
-    none (an orbax directory of the JAX package, converted in memory by
-    ``read_checkpoint``), the weights and EMA are kept, the optimiser starts
-    fresh, and a warning says so (reference: src/solver/trainer.py:358-361;
-    JAX's ``restore_checkpoint`` fallback).
+    accumulated gradients load when they fit the current optimiser, this
+    package's own or one converted from the JAX package's optax state (an
+    orbax directory, converted in memory by ``read_checkpoint``, or its
+    ``.pth``); the groups' hyperparameters stay the current run's, as JAX's,
+    whose optax state carries none. When the state does not fit (another
+    freeze setting, other groups) or there is none, the weights and EMA are
+    kept, the optimiser starts fresh, and a warning says so (reference:
+    src/solver/trainer.py:358-361; JAX's ``restore_checkpoint`` fallback).
     """
     ckpt = read_checkpoint(path)
     model, opt = step.model, step.optimizer
@@ -122,8 +141,12 @@ def restore_checkpoint(path: str, step) -> int:
     step.step = int(ckpt["step"])
     opt.updates = int(ckpt["optimizer_updates"])
     opt.zero_grad()
-    if _optimizer_matches(opt.adamw, ckpt["optimizer"]):
-        opt.adamw.load_state_dict(ckpt["optimizer"])
+    state = _optimizer_state_for(opt, model, ckpt["optimizer"])
+    if state is not None:
+        hyper = [{k: v for k, v in g.items() if k != "params"} for g in opt.adamw.param_groups]
+        opt.adamw.load_state_dict(state)
+        for g, h in zip(opt.adamw.param_groups, hyper):
+            g.update(h)
         step.micro = int(ckpt["micro"])
         named = dict(model.named_parameters())
         for n, g in (ckpt.get("grads") or {}).items():
@@ -131,8 +154,7 @@ def restore_checkpoint(path: str, step) -> int:
     else:
         opt.adamw.state.clear()
         step.micro = 0
-        what = ("carries no optimizer state (AdamW's moments are not converted from "
-                "an orbax checkpoint)" if ckpt["optimizer"] is None else
+        what = ("carries no optimizer state" if ckpt["optimizer"] is None else
                 "has an optimizer state that does not match the current optimizer")
         warnings.warn(f"the checkpoint {what}; restored the weights and EMA only and kept "
                       f"a fresh optimizer (reference trainer.py:358-361)", stacklevel=2)

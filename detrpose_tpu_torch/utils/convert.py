@@ -146,6 +146,128 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.
     return OrderedDict((k, torch.tensor(v)) for k, v in sd.items())
 
 
+def _nodes(tree: Any) -> Iterator[Mapping[str, Any]]:
+    """Every mapping in a restored tree of dicts and lists, depth first."""
+    if isinstance(tree, Mapping):
+        yield tree
+        for v in tree.values():
+            yield from _nodes(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _nodes(v)
+
+
+def _one(tree: Any, fields: set, what: str) -> Mapping[str, Any]:
+    found = [d for d in _nodes(tree) if set(d) == fields]
+    if len(found) != 1:
+        raise ValueError(f"optax state: {len(found)} {what} ({sorted(fields)}) where one "
+                         f"was expected")
+    return found[0]
+
+
+def _present(tree: Any) -> Any:
+    """The tree without the leaves a restore gives masked nodes (None, empty
+    containers), so it holds only one label's parameters."""
+    if isinstance(tree, Mapping):
+        kept = {k: _present(v) for k, v in tree.items()}
+        return {k: v for k, v in kept.items() if v is not None}
+    if tree is None or (isinstance(tree, (list, tuple)) and not tree):
+        return None
+    return tree
+
+
+def _port_tree(tree: Any) -> Dict[str, torch.Tensor]:
+    """A params-shaped numpy tree in the port's layout (``from_jax_variables``:
+    kernels transposed, q/k/v packed, the scanned decoder split)."""
+    kept = _present(tree)
+    return dict(from_jax_variables({"params": kept})) if kept else {}
+
+
+def optimizer_from_optax(opt_state: Any) -> Dict[str, Any]:
+    """The optimiser fields of this package's checkpoint from the optax state
+    of JAX ``make_optimizer``'s transform (``detrpose_tpu/train/optim.py``),
+    restored as numpy by ``PyTreeCheckpointer().restore`` with no template.
+
+    Such a restore gives named tuples back as dicts of their fields and
+    tuples as lists; the masked nodes of ``multi_transform`` (the leaves
+    outside a label) and the empty states come back as None. The transform
+    is ``[MultiSteps](chain([scale(k)], [clip_by_global_norm],
+    multi_transform({"main", "backbone": adamw, "frozen": set_to_zero})))``,
+    so the restored tree reads, found by its fields and not by position:
+
+      {"mini_step", "gradient_step", "acc_grads", "skip_state",
+       "inner_opt_state": [None, None,                      (with k > 1)
+        {"inner_states": {label: {"inner_state": [
+            {"count", "mu", "nu"},       ScaleByAdamState
+            None,                        add_decayed_weights
+            {"count"}]}}}]}              scale_by_learning_rate's schedule
+
+    (without ``MultiSteps`` the chain's list itself, and without the clip
+    one None fewer). Each label's ``mu`` and ``nu`` go through the weight key
+    map (``from_jax_variables``), kernels transposed and the scanned decoder
+    split as the weights are; a parameter takes its moments from the label
+    that holds them, and one in neither "main" nor "backbone" is frozen and
+    has no state. Returns:
+
+      optimizer   an ``AdamW.state_dict()`` over the groups "main" and
+                  "backbone" in that order, each group holding only its
+                  parameters' indices and names (``param_names``): optax's
+                  state carries no hyperparameters, and
+                  ``utils/checkpoint.py::restore_checkpoint`` maps the groups
+                  by name onto ``train/optim.py::make_optimizer``'s and gives
+                  them the resuming run's. Each parameter's ``step`` is its label's adam
+                  ``count`` (the bias correction's t - 1), ``exp_avg`` and
+                  ``exp_avg_sq`` its ``mu`` and ``nu``
+      optimizer_updates   the schedule's ``count``, from which
+                  ``TrainOptimizer`` takes the learning rate; optax advances
+                  it with the adam count, and a state where the two differ
+                  raises
+      micro, grads   ``MultiSteps``' ``mini_step`` and, when it is above 0,
+                  the gradients accumulated so far by name: optax keeps
+                  their running mean (``acc_grads``), this package their sum
+                  in ``p.grad``, so ``acc_grads * mini_step``; without
+                  ``MultiSteps`` 0 and None
+    """
+    multi = next((d for d in _nodes(opt_state) if "mini_step" in d), None)
+    inner = multi["inner_opt_state"] if multi is not None else opt_state
+    labels = _one(inner, {"inner_states"}, "multi_transform states")["inner_states"]
+    state, groups, owner, updates = {}, [], {}, set()
+    for label in ("main", "backbone"):
+        if label not in labels:
+            continue
+        adam = _one(labels[label], {"count", "mu", "nu"}, f'adam states under "{label}"')
+        sched = _one(labels[label], {"count"}, f'schedule states under "{label}"')
+        count, sched_count = int(np.asarray(adam["count"])), int(np.asarray(sched["count"]))
+        if count != sched_count:
+            raise ValueError(f'optax state: "{label}" has adam count {count} and schedule '
+                             f"count {sched_count}")
+        updates.add(count)
+        mu, nu = _port_tree(adam["mu"]), _port_tree(adam["nu"])
+        if set(mu) != set(nu):
+            raise ValueError(f'optax state: "{label}" has moments mu and nu of other leaves')
+        names = []
+        for name in mu:
+            if name in owner:
+                raise ValueError(f'optax state: {name} has moments under "{owner[name]}" '
+                                 f'and "{label}"')
+            owner[name] = label
+            state[len(state)] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                                 "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            names.append(name)
+        if names:
+            first = len(state) - len(names)
+            groups.append({"params": list(range(first, len(state))), "param_names": names})
+    if len(updates) > 1:
+        raise ValueError(f"optax state: the labels' counts differ: {sorted(updates)}")
+    micro = int(np.asarray(multi["mini_step"])) if multi is not None else 0
+    grads = None
+    if micro:
+        grads = {n: t * np.float32(micro) for n, t in _port_tree(multi["acc_grads"]).items()}
+    return {"optimizer": {"state": state, "param_groups": groups},
+            "optimizer_updates": updates.pop() if updates else 0,
+            "micro": micro, "grads": grads}
+
+
 def convert_orbax(path: str) -> Dict[str, Any]:
     """The JAX package's orbax checkpoint at ``path`` as a checkpoint dict of
     this package (CPU float32 tensors).
@@ -163,13 +285,10 @@ def convert_orbax(path: str) -> Dict[str, Any]:
                   live ones when the EMA carries none, as JAX
                   ``restore_variables`` does), "updates": its update count},
                   or None
-      optimizer   None: AdamW's moments are not carried, so a resume keeps
-                  the weights, the EMA and the counters and starts a fresh
-                  optimiser (``restore_checkpoint``'s fallback, with a warning)
-      optimizer_updates   the optimiser steps taken: the EMA's update count
-                  (the EMA advances once an optimiser step), else the step
-                  count
-      step, micro, grads, epoch   the TrainState's step, 0, None, the epoch
+      optimizer, optimizer_updates, micro, grads   ``optimizer_from_optax``
+                  of the ``opt_state``: AdamW's moments and step counts, the
+                  schedule's count and the partial accumulation
+      step, epoch   the TrainState's step, the epoch
 
     orbax is imported here only; where it is not installed, convert the
     checkpoint where it is (``tools/convert_orbax.py``) and pass the ``.pth``.
@@ -192,15 +311,11 @@ def convert_orbax(path: str) -> Dict[str, Any]:
                     "batch_stats": ema.get("batch_stats") or live["batch_stats"]}
         ema_out = {"module": dict(from_jax_variables(ema_vars)),
                    "updates": int(np.asarray(ema.get("updates", 0)))}
-    step = int(np.asarray(rs.get("step", 0)))
     return {
         "model": dict(from_jax_variables(live)),
         "ema": ema_out,
-        "optimizer": None,
-        "optimizer_updates": ema_out["updates"] if ema_out else step,
-        "step": step,
-        "micro": 0,
-        "grads": None,
+        **optimizer_from_optax(rs["opt_state"]),
+        "step": int(np.asarray(rs.get("step", 0))),
         "epoch": int(np.asarray(raw.get("epoch", 0))),
     }
 

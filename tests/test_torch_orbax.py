@@ -4,16 +4,21 @@
 
 JAX ``init_train_state`` for N at 160 px, its weights, BatchNorm statistics
 and EMA stream replaced by seeded draws (so the EMA differs from the live
-weights), written by JAX ``save_checkpoint`` into ``tmp_path``. The port reads
+weights) and its AdamW state advanced by as many updates of seeded
+gradients as the EMA's, written by JAX ``save_checkpoint`` into
+``tmp_path``. The port reads
 the directory through ``tools/infer.py::build_pipeline`` (converted in
 memory) and its eval forward must match JAX ``restore_variables`` + ``apply``
 within 1e-4 on logits and normalized keypoints, with the EMA preferred (as
 JAX prefers it), with ``prefer_ema=False``, and from an EMA that carries no
 statistics (both take the live ones). ``tools/export.py::build_serve``
 reads the same weights. ``Trainer.resume`` on the converted file keeps the
-weights, the EMA and the counters and warns that the optimiser starts
-fresh; the epoch follows the saved one. Without orbax the converter raises
-an ``ImportError`` that says how to convert elsewhere.
+weights, the EMA and the counters and carries AdamW's state without a
+warning; the epoch follows the saved one. A Trainer with another freeze
+mask (its groups differ from the JAX run's) warns that the optimiser starts
+fresh. Without orbax the converter raises an ``ImportError`` that says how
+to convert elsewhere. tests/test_torch_orbax_optimizer.py holds the carried
+AdamW state to optax's bit for bit, and the next update to JAX's.
 """
 import sys
 
@@ -51,7 +56,13 @@ def saved(tmp_path_factory):
     x0 = jnp.zeros((1, HW, HW, 3))
     params_shape = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x0,
                                                   train=True))["params"]
-    state = init_train_state(jm, jax_make_optimizer(params_shape), jax.random.PRNGKey(0), x0)
+    tx = jax_make_optimizer(params_shape)
+    state = init_train_state(jm, tx, jax.random.PRNGKey(0), x0)
+    rng = np.random.default_rng(30)
+    opt_state, update = state.opt_state, jax.jit(tx.update)
+    for _ in range(EMA_UPDATES):
+        g = jax.tree.map(lambda p: rng.normal(0, 1, p.shape).astype(np.float32), state.params)
+        opt_state = update(g, opt_state, state.params)[1]
     live = random_variables({"params": state.params, "batch_stats": state.batch_stats},
                             seed=31)
     ema = random_variables({"params": state.params, "batch_stats": state.batch_stats},
@@ -60,6 +71,7 @@ def saved(tmp_path_factory):
         head = v["params"]["transformer"]["enc_out_class_embed"]
         head["kernel"] = head["kernel"] * 50.0
     state = state.replace(step=jnp.asarray(STEP, jnp.int32), params=live["params"],
+                          opt_state=opt_state,
                           batch_stats=live["batch_stats"],
                           ema={**ema, "updates": jnp.asarray(EMA_UPDATES, jnp.int32)})
     root = tmp_path_factory.mktemp("orbax")
@@ -105,32 +117,40 @@ def test_export_reads_the_directory(saved):
         assert torch.equal(got[k], v), k
 
 
-def test_resume_from_the_converted_file(saved, tmp_path):
+def _trainer(tmp_path, name, **kwargs):
+    return Trainer(build_model(model_config("n"), device="cpu"), model_config("n"),
+                   output_dir=str(tmp_path / name), device="cpu", tensorboard=False,
+                   compute_dtype=torch.float32, log_fn=lambda *a: None, **kwargs)
+
+
+def test_resume_from_the_converted_file(saved, tmp_path, recwarn):
     _, _, paths = saved
     pth = str(tmp_path / "converted.pth")
     convert_main([paths["ema"], pth])
     ckpt = torch.load(pth, weights_only=False)
-    assert ckpt["epoch"] == EPOCH and ckpt["optimizer"] is None
-    model = build_model(model_config("n"), device="cpu")
-    tr = Trainer(model, model_config("n"), output_dir=str(tmp_path / "out"), device="cpu",
-                 tensorboard=False, compute_dtype=torch.float32, log_fn=lambda *a: None)
-    with pytest.warns(UserWarning, match="no optimizer state"):
-        tr.resume(pth)
+    assert ckpt["epoch"] == EPOCH and ckpt["optimizer"]["state"]
+    tr = _trainer(tmp_path, "out")
+    tr.resume(pth)
     assert tr.start_epoch == EPOCH + 1
     assert (tr.step.step, tr.step.micro, tr.optimizer.updates, tr.step.ema.updates) == (
         STEP, 0, EMA_UPDATES, EMA_UPDATES)
-    assert not tr.optimizer.adamw.state
-    for k, v in model.state_dict().items():
+    assert {st["step"].item() for st in tr.optimizer.adamw.state.values()} == {EMA_UPDATES}
+    for k, v in tr.step.model.state_dict().items():
         assert torch.equal(v, ckpt["model"][k]), k
     for k, v in tr.step.ema.state_dict().items():
         assert torch.equal(v, ckpt["ema"]["module"][k]), k
     # the directory itself resumes the same way (converted in memory)
-    other = Trainer(build_model(model_config("n"), device="cpu"), model_config("n"),
-                    output_dir=str(tmp_path / "out2"), device="cpu", tensorboard=False,
-                    compute_dtype=torch.float32, log_fn=lambda *a: None)
-    with pytest.warns(UserWarning, match="no optimizer state"):
-        other.resume(paths["ema"])
+    other = _trainer(tmp_path, "out2")
+    other.resume(paths["ema"])
     assert other.start_epoch == EPOCH + 1
+    assert len(other.optimizer.adamw.state) == len(tr.optimizer.adamw.state)
+    assert not [w for w in recwarn if "optimizer" in str(w.message)]
+    # another freeze mask: the JAX run's groups do not fit, AdamW starts fresh
+    frozen = _trainer(tmp_path, "out3", freeze_at=1, freeze_stem_only=False)
+    with pytest.warns(UserWarning, match="does not match the current optimizer"):
+        frozen.resume(pth)
+    assert frozen.start_epoch == EPOCH + 1 and not frozen.optimizer.adamw.state
+    assert (frozen.step.micro, frozen.optimizer.updates) == (0, EMA_UPDATES)
 
 
 def test_without_orbax_the_converter_says_how(saved, monkeypatch):

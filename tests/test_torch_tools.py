@@ -25,6 +25,7 @@ from detrpose_tpu.configs import model_config as jax_model_config
 
 from detrpose_tpu_torch.tools import benchmark, pallas_bench
 from detrpose_tpu_torch.tools.export import PROGRAM, build_serve, export_model
+from detrpose_tpu_torch.tools.phase_times import main as phase_times_main, range_times
 from detrpose_tpu_torch.utils.measure import cuda_time_ms
 
 torch.set_num_threads(2)
@@ -100,3 +101,23 @@ def test_timing_tools_need_cuda():
         pallas_bench.bench(batch=1, res=64, iters=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         benchmark.bench_size("n", 1, res=128)
+
+
+def test_range_times_reads_a_profile():
+    """tools/phase_times.py's split of a profiler session by its ranges: the
+    host time and calls of each recorded range, no device time without a
+    device, a range the session did not record left out; its command line
+    refuses to run without a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with record_function("phase.a"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    times = range_times(prof, ("phase.a", "phase.absent"))
+    assert set(times) == {"phase.a"}
+    assert times["phase.a"]["calls"] == 3 and times["phase.a"]["host_ms"] > 0
+    assert times["phase.a"]["device_ms"] == 0 and times["phase.a"]["spans"] == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            phase_times_main([])

@@ -44,7 +44,7 @@ from detrpose_tpu_torch.models.layers import BatchNorm
 from detrpose_tpu_torch.parallel.train_step import make_train_step
 from detrpose_tpu_torch.tools.benchmark import bench_train_step
 from detrpose_tpu_torch.train.cdn import build_cdn, cdn_to_device
-from detrpose_tpu_torch.train.optim import (EMA, label_parameters, make_optimizer,
+from detrpose_tpu_torch.train.optim import (EMA, AdamW, label_parameters, make_optimizer,
                                            multistep_schedule, resolve_backbone_freeze)
 from detrpose_tpu_torch.utils.convert import from_jax_variables
 
@@ -215,6 +215,13 @@ def test_optimizer_matches_jax(freeze):
     for name, p in named.items():
         moved = not torch.equal(p.detach(), before[name])
         assert moved == (labels[name] != "frozen") == (not torch.equal(end[name], start[name])), name
+
+
+@pytest.mark.parametrize("flag", ["amsgrad", "maximize", "foreach", "fused", "capturable",
+                                  "differentiable"])
+def test_adamw_refuses_the_flags_its_step_ignores(flag):
+    with pytest.raises(TypeError, match=flag):
+        AdamW([torch.nn.Parameter(torch.zeros(2))], lr=1e-4, **{flag: True})
 
 
 @pytest.mark.parametrize("args", [("B4",), ("resnet50",), ("resnet50", 2), ("resnet50", -1, True, True)])
