@@ -50,6 +50,7 @@ from ..ops.grid_sample import bilinear_grid_sample_nchw
 from ..ops.misc import inverse_sigmoid
 from ..ops.ms_deform_attn import ms_deform_attn_core
 from ..ops.pos_embed import sine_embedding_2d
+from ..utils.measure import span
 from .layers import (MLP, FastKANLayer, Gate, MultiheadAttention, RMSNorm,
                      get_activation)
 
@@ -214,64 +215,65 @@ class MSDeformAttn(nn.Module):
                 value: torch.Tensor, spatial_shapes: SpatialShapes) -> torch.Tensor:
         """query (B, Lq, C); reference_points (B, Lq, 2) float32 in [0, 1];
         value (B, S, nH*dh), the flattened pyramid -> (B, Lq, nH*dh)."""
-        B, Lq, _ = query.shape
-        nH, nL, nP = self.n_heads, self.n_levels, self.n_points
-        sizes = [int(h) * int(w) for h, w in spatial_shapes]
+        with span("decoder.cross_attn"):
+            B, Lq, _ = query.shape
+            nH, nL, nP = self.n_heads, self.n_levels, self.n_points
+            sizes = [int(h) * int(w) for h, w in spatial_shapes]
 
-        if hasattr(self, "global_proj"):
-            # per level the mean over (H, W, nH) of its (B, H*W, nH, dh) slice
-            pooled = torch.cat([lvl.unflatten(-1, (nH, -1)).mean(dim=(1, 2))
-                                for lvl in value.split(sizes, dim=1)], dim=-1)
-            gate = torch.sigmoid(self.global_gate(query))
-            query = query + gate * self.global_proj(pooled)[:, None, :]
+            if hasattr(self, "global_proj"):
+                # per level the mean over (H, W, nH) of its (B, H*W, nH, dh) slice
+                pooled = torch.cat([lvl.unflatten(-1, (nH, -1)).mean(dim=(1, 2))
+                                    for lvl in value.split(sizes, dim=1)], dim=-1)
+                gate = torch.sigmoid(self.global_gate(query))
+                query = query + gate * self.global_proj(pooled)[:, None, :]
 
-        offsets = self._heads(self.sampling_offsets(query), nP, pairs=True)
-        aw = self._weights(self.attention_weights(query), nP, query.dtype)
-        if hasattr(self, "sampling_modulation"):
-            # the LayerNorm over (nL, nP), taken over their flattening: the
-            # same function, and the CUDA backward of a 2-d normalized_shape
-            # returns its scale's gradient flat (torch 2.11)
-            ln = self.mod_layernorm
-            mod = self._heads(self.sampling_modulation(query), nP, pairs=False)
-            mod = F.layer_norm(mod.flatten(-2), (nL * nP,), ln.weight.flatten(),
-                               ln.bias.flatten(), ln.eps).unflatten(-1, (nL, nP))
-            aw = aw * torch.sigmoid(mod + self.mod_bias)
+            offsets = self._heads(self.sampling_offsets(query), nP, pairs=True)
+            aw = self._weights(self.attention_weights(query), nP, query.dtype)
+            if hasattr(self, "sampling_modulation"):
+                # the LayerNorm over (nL, nP), taken over their flattening: the
+                # same function, and the CUDA backward of a 2-d normalized_shape
+                # returns its scale's gradient flat (torch 2.11)
+                ln = self.mod_layernorm
+                mod = self._heads(self.sampling_modulation(query), nP, pairs=False)
+                mod = F.layer_norm(mod.flatten(-2), (nL * nP,), ln.weight.flatten(),
+                                   ln.bias.flatten(), ln.eps).unflatten(-1, (nL, nP))
+                aw = aw * torch.sigmoid(mod + self.mod_bias)
 
-        if self.region_kernel > 1:
-            # the k x k mean with zero padding counted; an even k pads k//2 on
-            # both sides and keeps the first H x W windows, as JAX's slices
-            k = self.region_kernel
-            value = torch.cat([
-                F.avg_pool2d(lvl.transpose(1, 2).unflatten(-1, (int(h), int(w))), k, 1,
-                             k // 2, count_include_pad=True)[..., :h, :w]
-                .flatten(2).transpose(1, 2)
-                for lvl, (h, w) in zip(value.split(sizes, dim=1), spatial_shapes)], dim=1)
+            if self.region_kernel > 1:
+                # the k x k mean with zero padding counted; an even k pads k//2 on
+                # both sides and keeps the first H x W windows, as JAX's slices
+                k = self.region_kernel
+                value = torch.cat([
+                    F.avg_pool2d(lvl.transpose(1, 2).unflatten(-1, (int(h), int(w))), k, 1,
+                                 k // 2, count_include_pad=True)[..., :h, :w]
+                    .flatten(2).transpose(1, 2)
+                    for lvl, (h, w) in zip(value.split(sizes, dim=1), spatial_shapes)], dim=1)
 
-        # loc = ref + offset / (W_l, H_l)   (ms_deform_attn.py:412-416)
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=torch.float32, device=query.device)
-        normalizer = normalizer[None, None, None, :, None, :]
-        loc = reference_points[:, :, None, None, None, :] + offsets.float() / normalizer
-        out = self._msda(value, spatial_shapes, loc, aw.float())
-        if not self.grid_points:
-            return out
+            # loc = ref + offset / (W_l, H_l)   (ms_deform_attn.py:412-416)
+            normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                      dtype=torch.float32, device=query.device)
+            normalizer = normalizer[None, None, None, :, None, :]
+            loc = reference_points[:, :, None, None, None, :] + offsets.float() / normalizer
+            out = self._msda(value, spatial_shapes, loc, aw.float())
+            if not self.grid_points:
+                return out
 
-        # the coarse grid branch (ms_deform_attn.py:446-510): centres
-        # (i + 0.5) / gs, x from the column and y from the row
-        Pg = self.grid_points
-        gs = math.isqrt(Pg)
-        centers = (np.arange(gs, dtype=np.float32) + 0.5) / gs
-        yy, xx = np.meshgrid(centers, centers, indexing="ij")
-        grid_loc = torch.from_numpy(np.stack([xx.reshape(-1), yy.reshape(-1)], -1)).to(
-            query.device).expand(B, Lq, nH * self.groups, nL, Pg, 2)
-        gaw = self._weights(self.grid_attention_weights(query), Pg, query.dtype)
-        if hasattr(self, "grid_offsets"):
-            goff = self._heads(self.grid_offsets(query), Pg, pairs=True)
-            grid_loc = grid_loc + goff.float() / normalizer
-        grid_out = self._msda(value, spatial_shapes, grid_loc.contiguous(), gaw.float())
-        if hasattr(self, "grid_fuse_proj"):
-            return self.grid_fuse_proj(torch.cat([out, grid_out], dim=-1))
-        return out + grid_out
+            # the coarse grid branch (ms_deform_attn.py:446-510): centres
+            # (i + 0.5) / gs, x from the column and y from the row
+            Pg = self.grid_points
+            gs = math.isqrt(Pg)
+            centers = (np.arange(gs, dtype=np.float32) + 0.5) / gs
+            yy, xx = np.meshgrid(centers, centers, indexing="ij")
+            grid_loc = torch.from_numpy(np.stack([xx.reshape(-1), yy.reshape(-1)], -1)).to(
+                query.device).expand(B, Lq, nH * self.groups, nL, Pg, 2)
+            gaw = self._weights(self.grid_attention_weights(query), Pg, query.dtype)
+            if hasattr(self, "grid_offsets"):
+                goff = self._heads(self.grid_offsets(query), Pg, pairs=True)
+                grid_loc = grid_loc + goff.float() / normalizer
+            grid_out = self._msda(value, spatial_shapes, grid_loc.contiguous(), gaw.float())
+            if hasattr(self, "grid_fuse_proj"):
+                return self.grid_fuse_proj(torch.cat([out, grid_out], dim=-1))
+            return out + grid_out
 
 
 class LQE(nn.Module):
@@ -465,43 +467,45 @@ class TransformerDecoder(nn.Module):
         poses, logits_all, corners_all = [], [], []
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
-            layer_ref = refpoint_pose
-            ref_only_pose = refpoint_pose[:, :, 1:]                    # (B, nq, K, 2)
-            sine = sine_embedding_2d(ref_only_pose, self.hidden_dim).to(out.dtype)
-            query_pos = self.half_pose_ref_point_head(sine)
-            if self.remat and train and torch.is_grad_enabled():
-                out = checkpoint(layer, out, query_pos, refpoint_pose, value,
-                                 spatial_shapes, attn_mask, use_reentrant=False)
-            else:
-                out = layer(out, query_pos, refpoint_pose, value, spatial_shapes,
-                            attn_mask)
-            output_pose = out[:, :, 1:]
+            with span("decoder.layer"):
+                layer_ref = refpoint_pose
+                ref_only_pose = refpoint_pose[:, :, 1:]                    # (B, nq, K, 2)
+                with span("decoder.query_pos"):
+                    sine = sine_embedding_2d(ref_only_pose, self.hidden_dim).to(out.dtype)
+                    query_pos = self.half_pose_ref_point_head(sine)
+                if self.remat and train and torch.is_grad_enabled():
+                    out = checkpoint(layer, out, query_pos, refpoint_pose, value,
+                                     spatial_shapes, attn_mask, use_reentrant=False)
+                else:
+                    out = layer(out, query_pos, refpoint_pose, value, spatial_shapes,
+                                attn_mask)
+                output_pose = out[:, :, 1:]
 
-            if i == 0:
-                pre = pre_pose_embed(output_pose)
-                pre_poses = torch.sigmoid(pre + inverse_sigmoid(ref_only_pose)).float()
-                ref_pose_initial = pre_poses.detach() if train else pre_poses
-
-            corners = pose_embed[i](output_pose + output_pose_detach)
-            if pred_corners is not None:
-                corners = corners + pred_corners
-            kpts = distance2pose(ref_pose_initial, integral(corners, project),
-                                 self.reg_scale)                      # (B, nq, K, 2)
-            refpoint_pose = torch.cat([kpts.mean(dim=2, keepdim=True), kpts], dim=2)
-            output_pose_detach = output_pose
-            if train:
-                refpoint_pose = refpoint_pose.detach()
-                output_pose_detach = output_pose.detach()
-            pred_corners = corners
-            if train or i == last:
-                score = class_embed[i](out[:, :, 0])
-                logits = lqe_embed[i](score, kpts, feat_lqe)
                 if i == 0:
-                    pre_scores = score
-            if train:
-                poses.append(kpts)
-                logits_all.append(logits)
-                corners_all.append(corners)
+                    pre = pre_pose_embed(output_pose)
+                    pre_poses = torch.sigmoid(pre + inverse_sigmoid(ref_only_pose)).float()
+                    ref_pose_initial = pre_poses.detach() if train else pre_poses
+
+                corners = pose_embed[i](output_pose + output_pose_detach)
+                if pred_corners is not None:
+                    corners = corners + pred_corners
+                kpts = distance2pose(ref_pose_initial, integral(corners, project),
+                                     self.reg_scale)                      # (B, nq, K, 2)
+                refpoint_pose = torch.cat([kpts.mean(dim=2, keepdim=True), kpts], dim=2)
+                output_pose_detach = output_pose
+                if train:
+                    refpoint_pose = refpoint_pose.detach()
+                    output_pose_detach = output_pose.detach()
+                pred_corners = corners
+                if train or i == last:
+                    score = class_embed[i](out[:, :, 0])
+                    logits = lqe_embed[i](score, kpts, feat_lqe)
+                    if i == 0:
+                        pre_scores = score
+                if train:
+                    poses.append(kpts)
+                    logits_all.append(logits)
+                    corners_all.append(corners)
         energy_reg = None
         if hasattr(self, "energy_layer"):
             corners, kpts, logits, energy_reg = self._energy_refine(

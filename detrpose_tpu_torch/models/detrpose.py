@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..utils.measure import span
 from .hgnetv2 import HGNetv2
 from .hybrid_encoder import HybridEncoder
 from .layers import FastKANLayer
@@ -80,4 +81,9 @@ class DETRPose(nn.Module):
 
         Eval -> {pred_logits, pred_keypoints}; training -> the train dict of
         ``models/transformer.py::Transformer.forward``."""
-        return self.transformer(self.encoder(self.backbone(samples)), dn)
+        with span("detrpose.backbone"):
+            feats = self.backbone(samples)
+        with span("detrpose.encoder"):
+            feats = self.encoder(feats)
+        with span("detrpose.transformer"):
+            return self.transformer(feats, dn)

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pos_embed import sine_hw_position_embedding
+from ..utils.measure import span
 from .layers import (BatchNorm, ConvNormLayer, MultiheadAttention, RepNCSPELAN4,
                      SCDown, get_activation)
 
@@ -101,29 +102,31 @@ class HybridEncoder(nn.Module):
 
         # AIFI encoder on the selected level(s)
         for enc, enc_idx in zip(self.encoder, self.use_encoder_idx):
-            x = proj[enc_idx]
-            B, C, H, W = x.shape
-            src = x.flatten(2).transpose(1, 2)                  # (B, H*W, C)
-            pos = sine_hw_position_embedding(
-                W, H, self.hidden_dim // 2, self.temperature_w,
-                self.temperature_h, device=x.device).to(src.dtype)
-            for layer in enc.layers:
-                src = layer(src, pos)
-            proj[enc_idx] = src.transpose(1, 2).reshape(B, C, H, W)
+            with span("encoder.aifi"):
+                x = proj[enc_idx]
+                B, C, H, W = x.shape
+                src = x.flatten(2).transpose(1, 2)                  # (B, H*W, C)
+                pos = sine_hw_position_embedding(
+                    W, H, self.hidden_dim // 2, self.temperature_w,
+                    self.temperature_h, device=x.device).to(src.dtype)
+                for layer in enc.layers:
+                    src = layer(src, pos)
+                proj[enc_idx] = src.transpose(1, 2).reshape(B, C, H, W)
 
-        # top-down FPN
-        inner_outs = [proj[-1]]
-        for k, idx in enumerate(range(self.n_levels - 1, 0, -1)):
-            feat_high = self.lateral_convs[k](inner_outs[0])
-            inner_outs[0] = feat_high
-            up = F.interpolate(feat_high, scale_factor=2.0, mode="nearest")
-            inner = self.fpn_blocks[k](torch.cat([up, proj[idx - 1]], dim=1))
-            inner_outs.insert(0, inner)
+        with span("encoder.fusion"):
+            # top-down FPN
+            inner_outs = [proj[-1]]
+            for k, idx in enumerate(range(self.n_levels - 1, 0, -1)):
+                feat_high = self.lateral_convs[k](inner_outs[0])
+                inner_outs[0] = feat_high
+                up = F.interpolate(feat_high, scale_factor=2.0, mode="nearest")
+                inner = self.fpn_blocks[k](torch.cat([up, proj[idx - 1]], dim=1))
+                inner_outs.insert(0, inner)
 
-        # bottom-up PAN
-        outs = [inner_outs[0]]
-        for idx in range(self.n_levels - 1):
-            down = self.downsample_convs[idx](outs[-1])
-            outs.append(self.pan_blocks[idx](
-                torch.cat([down, inner_outs[idx + 1]], dim=1)))
+            # bottom-up PAN
+            outs = [inner_outs[0]]
+            for idx in range(self.n_levels - 1):
+                down = self.downsample_convs[idx](outs[-1])
+                outs.append(self.pan_blocks[idx](
+                    torch.cat([down, inner_outs[idx + 1]], dim=1)))
         return outs

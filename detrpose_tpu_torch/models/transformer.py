@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.fdr import weighting_function
+from ..utils.measure import span
 from .decoder import CLASS_BIAS_PRIOR, LQE, TransformerDecoder
 from .layers import MLP
 
@@ -118,54 +119,55 @@ class Transformer(nn.Module):
         with ``dn``, the same for the denoising block split off the front
         (``dn_aux_outputs`` per layer, ``dn_aux_pre_outputs``, ``dn_meta``).
         """
-        K, hd, nq = self.num_body_points, self.hidden_dim, self.num_queries
-        train = self.training
-        B = feats[0].shape[0]
-        device = feats[0].device
-        spatial_shapes = [(int(f.shape[2]), int(f.shape[3])) for f in feats]
+        with span("transformer.select"):
+            K, hd, nq = self.num_body_points, self.hidden_dim, self.num_queries
+            train = self.training
+            B = feats[0].shape[0]
+            device = feats[0].device
+            spatial_shapes = [(int(f.shape[2]), int(f.shape[3])) for f in feats]
 
-        # flatten the pyramid: (B, S, hidden), levels in order, channel-minor.
-        # Unmasked, it is also the MSDA value map (B, S, nH*dh).
-        memory = torch.cat([f.flatten(2).transpose(1, 2) for f in feats], dim=1)
-        if memory.shape[1] < nq:
-            raise ValueError(f"input too small: {memory.shape[1]} anchors < "
-                             f"num_queries={nq}")
-        anchors, invalid = make_anchors(spatial_shapes, device)
+            # flatten the pyramid: (B, S, hidden), levels in order, channel-minor.
+            # Unmasked, it is also the MSDA value map (B, S, nH*dh).
+            memory = torch.cat([f.flatten(2).transpose(1, 2) for f in feats], dim=1)
+            if memory.shape[1] < nq:
+                raise ValueError(f"input too small: {memory.shape[1]} anchors < "
+                                 f"num_queries={nq}")
+            anchors, invalid = make_anchors(spatial_shapes, device)
 
-        # two-stage query selection
-        output_memory = self.enc_output_norm(
-            self.enc_output(memory.masked_fill(invalid, 0.0)))
-        enc_class = self.enc_out_class_embed(output_memory)        # (B, S, C)
-        topk_idx = enc_class.max(dim=-1).values.topk(nq, dim=1).indices
-        topk_memory = output_memory.gather(1, topk_idx[..., None].expand(-1, -1, hd))
-        topk_anchors = anchors.expand(B, -1, -1).gather(
-            1, topk_idx[..., None].expand(-1, -1, 2))              # (B, nq, 2)
-        delta = self.enc_pose_embed(topk_memory).reshape(B, nq, K, 2)
-        enc_pose_coord = torch.sigmoid(delta + topk_anchors[:, :, None, :])
-        # the decoder's initial reference points carry no gradient (JAX :126)
-        refpoints = torch.cat(
-            [enc_pose_coord.mean(dim=2, keepdim=True), enc_pose_coord], dim=2).detach()
+            # two-stage query selection
+            output_memory = self.enc_output_norm(
+                self.enc_output(memory.masked_fill(invalid, 0.0)))
+            enc_class = self.enc_out_class_embed(output_memory)        # (B, S, C)
+            topk_idx = enc_class.max(dim=-1).values.topk(nq, dim=1).indices
+            topk_memory = output_memory.gather(1, topk_idx[..., None].expand(-1, -1, hd))
+            topk_anchors = anchors.expand(B, -1, -1).gather(
+                1, topk_idx[..., None].expand(-1, -1, 2))              # (B, nq, 2)
+            delta = self.enc_pose_embed(topk_memory).reshape(B, nq, K, 2)
+            enc_pose_coord = torch.sigmoid(delta + topk_anchors[:, :, None, :])
+            # the decoder's initial reference points carry no gradient (JAX :126)
+            refpoints = torch.cat(
+                [enc_pose_coord.mean(dim=2, keepdim=True), enc_pose_coord], dim=2).detach()
 
-        # query tokens: learnable content + shared keypoint / instance priors
-        tgt = self.tgt_embed.weight[None, :, None, :].expand(B, nq, 1, hd)
-        tgt_pose = self.keypoint_embedding.weight[None, None] + tgt  # (B, nq, K, hd)
-        tgt_global = self.instance_embedding.weight[None, None].expand(B, nq, 1, hd)
-        tgt_tokens = torch.cat([tgt_global, tgt_pose], dim=2).to(memory.dtype)
+            # query tokens: learnable content + shared keypoint / instance priors
+            tgt = self.tgt_embed.weight[None, :, None, :].expand(B, nq, 1, hd)
+            tgt_pose = self.keypoint_embedding.weight[None, None] + tgt  # (B, nq, K, hd)
+            tgt_global = self.instance_embedding.weight[None, None].expand(B, nq, 1, hd)
+            tgt_tokens = torch.cat([tgt_global, tgt_pose], dim=2).to(memory.dtype)
 
-        # denoising queries in front of the real ones (transformer.py:150-164);
-        # unused slots carry zero content (the reference's padding_label)
-        attn_mask, pad = None, 0
-        if train and dn is not None:
-            pad = dn["labels"].shape[1]
-            lab = self.label_enc.weight[dn["labels"]]                # (B, pad, hd)
-            pose_tok = self.pose_enc.weight[None, None].expand(B, pad, K, hd)
-            dn_tokens = torch.cat([lab[:, :, None], pose_tok], dim=2)
-            dn_tokens = torch.where(dn["slot_used"][:, :, None, None], dn_tokens, 0.0)
-            tgt_tokens = torch.cat([dn_tokens.to(tgt_tokens.dtype), tgt_tokens], dim=1)
-            refpoints = torch.cat([torch.sigmoid(dn["pose_logits"]), refpoints], dim=1)
-            attn_mask = dn["attn_mask"]
+            # denoising queries in front of the real ones (transformer.py:150-164);
+            # unused slots carry zero content (the reference's padding_label)
+            attn_mask, pad = None, 0
+            if train and dn is not None:
+                pad = dn["labels"].shape[1]
+                lab = self.label_enc.weight[dn["labels"]]                # (B, pad, hd)
+                pose_tok = self.pose_enc.weight[None, None].expand(B, pad, K, hd)
+                dn_tokens = torch.cat([lab[:, :, None], pose_tok], dim=2)
+                dn_tokens = torch.where(dn["slot_used"][:, :, None, None], dn_tokens, 0.0)
+                tgt_tokens = torch.cat([dn_tokens.to(tgt_tokens.dtype), tgt_tokens], dim=1)
+                refpoints = torch.cat([torch.sigmoid(dn["pose_logits"]), refpoints], dim=1)
+                attn_mask = dn["attn_mask"]
 
-        project = weighting_function(self.reg_max, self.up, self.reg_scale, device)
+            project = weighting_function(self.reg_max, self.up, self.reg_scale, device)
         dec = self.decoder(
             tgt_tokens, refpoints, memory, spatial_shapes, feats[0], project,
             self.pose_embed, self.class_embed, self.lqe_embed, self.pre_pose_embed,

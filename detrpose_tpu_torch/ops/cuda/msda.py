@@ -38,6 +38,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from ...utils.measure import span
 from ..ms_deform_attn import SpatialShapes, flatten_levels, ms_deform_attn_core
 from .build import load_library
 
@@ -378,7 +379,7 @@ def _backward(ctx, grad_out):
         need = tuple(n and (t.grad_fn is None or torch._C._will_engine_execute_node(t.grad_fn))
                      for t, n in zip((value, loc, aw), need))
         wanted = [t for t, n in zip((value, loc, aw), need) if n]
-        with torch.profiler.record_function(BACKWARD_RANGE):
+        with span(BACKWARD_RANGE):
             out = ms_deform_attn_core(value, pairs(ctx.level_hw), loc, aw)
             grads = iter(torch.autograd.grad(out, wanted, grad_out, create_graph=True))
         gv, gl, ga = (next(grads) if n else None for n in need)
@@ -387,7 +388,7 @@ def _backward(ctx, grad_out):
     wanted = [t for t in inputs if t.requires_grad]
     grads = iter(())
     if wanted:
-        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+        with torch.enable_grad(), span(BACKWARD_RANGE):
             out = ms_deform_attn_core(inputs[0], pairs(ctx.level_hw), inputs[1], inputs[2])
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
     gv, gl, ga = (next(grads) if t.requires_grad else None for t in inputs)

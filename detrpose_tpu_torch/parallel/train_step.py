@@ -43,6 +43,7 @@ from ..models.layers import BatchNorm
 from ..train.criterion import criterion as criterion_fn
 from ..train.optim import EMA, TrainOptimizer
 from ..utils.device import resolve_device
+from ..utils.measure import span
 from .dist import all_reduce_counts, world
 from .mesh import data_parallel
 
@@ -97,7 +98,7 @@ class TrainStep:
         last = self.micro + 1 == self.optimizer.grad_accum_steps
         sync = (self.net.no_sync() if self.net is not self.model and not last
                 else contextlib.nullcontext())
-        forward, crit, backward, update = (torch.profiler.record_function(n) for n in PHASES)
+        forward, crit, backward, update = (span(n) for n in PHASES)
         with sync:
             with forward, torch.autocast(images.device.type, dtype=self.compute_dtype,
                                          enabled=amp):

@@ -19,6 +19,9 @@ checkpoint directory of the JAX package (converted in memory,
 ``utils/convert.py::convert_orbax``), EMA weights preferred; without one the weights
 are drawn from seed 0. The command line
 runs in bf16 on the CUDA device, in float32 with ``--device cpu``.
+
+A ``torch.profiler`` session around ``Pipeline`` calls shows their spans:
+``pipeline.{upload,preprocess,forward,decode}``, and the model's inside.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..configs import build_model, model_config
 from ..models import postprocess
 from ..utils.convert import drop_derived, load_torch_checkpoint
 from ..utils.device import resolve_device
+from ..utils.measure import span
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -78,12 +82,17 @@ class Pipeline:
         """img_u8 (H, W, 3) or (B, H, W, 3) uint8; orig_wh (2,) or (B, 2), the
         original (w, h) -> scores (B, 60), labels (B, 60), keypoints
         (B, 60, K, 3) in original pixels."""
-        img = torch.as_tensor(img_u8).to(self.device)
-        wh = torch.as_tensor(np.asarray(orig_wh, np.float32)).to(self.device)
+        with span("pipeline.upload"):
+            img = torch.as_tensor(img_u8).to(self.device)
+            wh = torch.as_tensor(np.asarray(orig_wh, np.float32)).to(self.device)
         if img.dim() == 3:
             img, wh = img[None], wh.reshape(1, 2)
-        x = preprocess(img, self.res).to(self.dtype)
-        return postprocess(self.model(x), wh, num_body_points=self.num_body_points)
+        with span("pipeline.preprocess"):
+            x = preprocess(img, self.res).to(self.dtype)
+        with span("pipeline.forward"):
+            out = self.model(x)
+        with span("pipeline.decode"):
+            return postprocess(out, wh, num_body_points=self.num_body_points)
 
 
 def build_pipeline(size: str, num_body_points: int = 17, ckpt: Optional[str] = None,

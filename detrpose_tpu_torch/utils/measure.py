@@ -7,6 +7,10 @@ work runs on and bound it, so a warmed-up run of many calls between two
 events is the measurement here, and there is no slope. Where a call's host
 work (Python, the launch) outlasts its kernels, that time is the host's;
 ``kernel_times`` reads the kernels' own device time from torch.profiler.
+``span`` is the one way the port opens a profiler range: a
+``record_function`` while a profiler records, a shared null context
+otherwise, so a range left in the serving or training path costs a check
+when nothing traces it.
 
 The headline bench (``bench_torch.py``, the port's ``bench.py``) is built
 from the parts below: the card's bf16 peak and power limit, its gate
@@ -15,6 +19,7 @@ and the double-buffered serving copy.
 """
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -28,6 +33,19 @@ DEVICE_PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 989.0}
 # the reference DETRPose-L under TensorRT fp16 on a V100, images/s
 # (README.md:84 of the reference; bench.py's TRT_L_IPS)
 TRT_L_IPS = 1000.0 / 9.50
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range ``name`` around a ``with`` block: a
+    ``torch.profiler.record_function`` while a profiler is recording, else
+    a shared null context: the bare ``record_function`` costs about 10 us
+    of host time even with no profiler running, the check about 0.5 us."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def cuda_time_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> float:
