@@ -20,6 +20,12 @@ checkpoint directory of the JAX package (converted in memory,
 are drawn from seed 0. The command line
 runs in bf16 on the CUDA device, in float32 with ``--device cpu``.
 
+On a CUDA device ``Pipeline`` sends the frames through a pinned arena of
+its own, copied into in chunks by a few host threads, each chunk sent to the
+card by an asynchronous copy while the next is filled
+(``utils/staging.py``); on the CPU the upload is the plain
+``torch.as_tensor``.
+
 A ``torch.profiler`` session around ``Pipeline`` calls shows their spans:
 ``pipeline.{upload,preprocess,forward,decode}``, and the model's inside.
 """
@@ -38,6 +44,7 @@ from ..models import postprocess
 from ..utils.convert import drop_derived, load_torch_checkpoint
 from ..utils.device import resolve_device
 from ..utils.measure import span
+from ..utils.staging import StagedUpload
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -69,12 +76,29 @@ def preprocess(img_u8: torch.Tensor, res: int) -> torch.Tensor:
 
 class Pipeline:
     """The eval forward plus the top-k decode, on one device; ``model`` is
-    the underlying ``DETRPose``."""
+    the underlying ``DETRPose``.
+
+    On a CUDA device the frames and their sizes reach the card through
+    ``staging``, a ``utils/staging.py::StagedUpload``: a pinned arena the
+    pipeline keeps, filled in chunks by a few host threads, each chunk sent
+    by an asynchronous copy as soon as it is filled. On the CPU the upload
+    is the plain ``torch.as_tensor``."""
 
     def __init__(self, model: torch.nn.Module, res: int, num_body_points: int,
                  dtype: torch.dtype, device: torch.device):
         self.model, self.res, self.num_body_points = model, res, num_body_points
         self.dtype, self.device = dtype, device
+        self.staging = StagedUpload(device) if device.type == "cuda" else None
+
+    def upload(self, img_u8: ArrayLike, orig_wh: Union[ArrayLike, Sequence[float]]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(frames, sizes as float32) on the pipeline's device; the caller's
+        buffers are free again when it returns."""
+        with span("pipeline.upload"):
+            if self.staging is not None:
+                return self.staging(img_u8, orig_wh)
+            return (torch.as_tensor(img_u8).to(self.device),
+                    torch.as_tensor(np.asarray(orig_wh, np.float32)).to(self.device))
 
     @torch.no_grad()
     def __call__(self, img_u8: ArrayLike, orig_wh: Union[ArrayLike, Sequence[float]]
@@ -82,9 +106,7 @@ class Pipeline:
         """img_u8 (H, W, 3) or (B, H, W, 3) uint8; orig_wh (2,) or (B, 2), the
         original (w, h) -> scores (B, 60), labels (B, 60), keypoints
         (B, 60, K, 3) in original pixels."""
-        with span("pipeline.upload"):
-            img = torch.as_tensor(img_u8).to(self.device)
-            wh = torch.as_tensor(np.asarray(orig_wh, np.float32)).to(self.device)
+        img, wh = self.upload(img_u8, orig_wh)
         if img.dim() == 3:
             img, wh = img[None], wh.reshape(1, 2)
         with span("pipeline.preprocess"):
