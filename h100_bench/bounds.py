@@ -13,6 +13,11 @@ import json
 from typing import Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+# the keys of a configuration's ``model`` block that this module reads
+READS = ("feat_strides", "n_levels", "hidden_dim", "dec_n_points")
 
 
 def eval_levels(model: dict, res: int) -> Tuple[Tuple[int, int], ...]:
@@ -42,25 +47,50 @@ def msda_fwd_bound_s(model: dict, res: int, batch: int, queries: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+class OpCount(TorchDispatchMode):
+    """Sums ``torch.utils.flop_counter.flop_registry``'s operations over
+    every call dispatched while it is active, a gradient that the forward
+    takes inside (``torch.autograd.grad``) included. An operation the
+    registry lacks is decomposed and its parts counted, as
+    ``FlopCounterMode`` does; that mode's module tracker cannot follow
+    ``autograd.grad`` on a leaf, so it is not used."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is None and func is not torch.ops.prim.device.default:
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        if formula is not None:
+            self.total += formula(*args, **kwargs, out_val=out)
+        return out
+
+
 @functools.lru_cache(maxsize=8)
 def _serve_flops(model_json: str, res: int, batch: int) -> float:
-    from torch.utils.flop_counter import FlopCounterMode
-
     from .reference import build
     from .reference.models.postprocess import postprocess
 
     net = build(json.loads(model_json), "meta")
     x = torch.zeros(batch, 3, res, res, device="meta")
-    counter = FlopCounterMode(display=False)
+    counter = OpCount()
     with torch.no_grad(), counter:
         out = net(x)
         postprocess(out, torch.ones(batch, 2, device="meta"),
                     num_body_points=json.loads(model_json)["num_body_points"])
-    return float(counter.get_total_flops())
+    return float(counter.total)
 
 
 def serve_flops_per_image(model: dict, res: int, batch: int) -> float:
     """Operations of one image's eval forward and decode at ``res`` px, at
-    batch ``batch``: convolutions, matrix products and attention, counted by
-    ``FlopCounterMode`` over the reference on the meta device."""
+    batch ``batch``: convolutions, matrix products and attention, and the
+    gradient energy refinement takes, counted by ``OpCount`` over the
+    reference on the meta device."""
     return _serve_flops(json.dumps(model, sort_keys=True), res, batch) / batch

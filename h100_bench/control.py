@@ -5,7 +5,9 @@ program is, every kernel of two dimensions or more is rounded to float8
 once, and on every call the input of each convolution and linear layer and
 the tensor outputs of every module without children are rounded to float8,
 each with a per-tensor scale that maps its largest magnitude to float8's
-largest (448). The comparison that decides ``correct`` must call it wrong.
+largest (448). A gradient taken through the control (energy refinement's,
+at eval) passes each rounding and is itself rounded to float8 there. The
+comparison that decides ``correct`` must call it wrong.
 """
 from __future__ import annotations
 
@@ -16,14 +18,29 @@ F8 = torch.float8_e4m3fn
 F8_MAX = 448.0
 
 
+def _round(x: torch.Tensor) -> torch.Tensor:
+    scale = x.abs().amax().float().clamp(min=1e-30) / F8_MAX
+    return ((x.float() / scale).to(F8).float() * scale).to(x.dtype)
+
+
+class _ToF8(torch.autograd.Function):
+    """The rounding, whose gradient is the incoming one rounded the same way."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _round(g)
+
+
 def to_f8(x):
     """A floating tensor ``x`` rounded to float8 e4m3 under a per-tensor
     scale, back in its own type; anything else unchanged."""
     if not isinstance(x, torch.Tensor) or not x.is_floating_point() or x.numel() == 0:
         return x
-    with torch.no_grad():
-        scale = x.abs().amax().float().clamp(min=1e-30) / F8_MAX
-        return ((x.float() / scale).to(F8).float() * scale).to(x.dtype)
+    return _ToF8.apply(x)
 
 
 def _round_outputs(_m, _args, out):

@@ -27,7 +27,17 @@ judged:
   keypoints in pixels) against the reference's decode of the program's own
   raw outputs, on the same device in the same types: an exact comparison,
   limit 0. A decode is a top-k, so it is judged on the raw outputs it was
-  given, and those are judged above.
+  given, and those are judged above;
+- ``energy_kpt_rel``, only where the configuration turns energy refinement
+  on: the refinement's own step on the keypoints, Delta = the keypoints the
+  model returns less those that entered the refinement (the last layer's
+  float32 keypoints, the argument of its ``lqe_embed`` head), on each side;
+  ||Delta_prog - Delta_ref|| / ||Delta_ref|| over a request, infinite where
+  ||Delta_ref|| is 0 or not finite. The step moves a keypoint by some 1e-5,
+  a thousandth of ``kpt_rms``'s limit, so only a number relative to the
+  step's own size sees a program that skips or botches it; both sides'
+  keypoints are float32, so it reads the gradient's arithmetic, not the
+  rounding of the state.
 
 Each number is the worst over the checked requests.
 """
@@ -48,6 +58,16 @@ def kpt_rms(kpts: torch.Tensor, ref_kpts: torch.Tensor) -> float:
     """The root mean square difference of the program's raw keypoints
     (B, nq, 2K) from the reference's, over the whole request."""
     return float((kpts.float() - ref_kpts.float()).square().mean().sqrt())
+
+
+def energy_kpt_rel(step: torch.Tensor, ref_step: torch.Tensor) -> float:
+    """The program's refinement step on the keypoints (B, nq, K, 2) against
+    the reference's: the norm of their difference over the norm of the
+    reference's, over the whole request."""
+    ref = float(ref_step.double().norm())
+    if not math.isfinite(ref) or ref == 0.0:
+        return math.inf
+    return float((step.double() - ref_step.double()).norm()) / ref
 
 
 def score_img_rms(logits: torch.Tensor, ref_logits: torch.Tensor) -> float:

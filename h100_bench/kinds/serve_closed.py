@@ -18,13 +18,14 @@ Traffic parameters (``h100_bench/traffic/<name>.json``):
 The frames are smooth random images (a coarse uniform grid upsampled 16x,
 with fine noise), drawn on the device from the seed and copied to host
 memory as numpy arrays, as a video decoder yields them. The window drives
-``detrpose_tpu_torch.tools.infer.build_pipeline(...)`` and its
-``Pipeline.__call__``; every request's latency is the host time from the
-call to its results on the host.
+the program's ``detrpose_tpu_torch.tools.infer.Pipeline.__call__``, built
+from the configuration by ``build_port``; every request's latency is the
+host time from the call to its results on the host.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import time
 
@@ -33,10 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import bounds, judge, trace, weights
+from ..reference import REQUIRED, VARIANTS
 from ..reference.models.postprocess import postprocess as ref_postprocess
 from ..reference.pipeline import decode_from, features
 
-NUMBERS = ("enc_score_err", "score_img_rms", "kpt_rms", "decode_mismatch")
+NUMBERS = ("enc_score_err", "score_img_rms", "kpt_rms", "decode_mismatch", "energy_kpt_rel")
 SPANS = {"bench.model": None, "model.backbone": "backbone", "model.encoder": "encoder",
          "model.transformer": "transformer"}
 
@@ -58,23 +60,49 @@ def draw_frames(seed: int, n: int, wh, device) -> np.ndarray:
     return u8.cpu().numpy()
 
 
+def refines(cfg: dict) -> bool:
+    """Whether the configuration turns energy refinement on."""
+    return bool(cfg["model"].get("use_energy_refinement", False))
+
+
+def check_block(cfg: dict) -> None:
+    """End the run, naming the key, where the configuration's ``model``
+    block holds a key that neither the reference nor ``bounds.py`` reads, or
+    turns energy refinement on without its step size (``weights.draw``)."""
+    unread = sorted(set(cfg["model"]) - set(REQUIRED + VARIANTS + bounds.READS))
+    if unread:
+        raise SystemExit(f"h100_bench: {cfg['name']}: the reference reads no key {unread}")
+    if refines(cfg) and "energy_step_size" not in cfg["model"]:
+        raise SystemExit(f"h100_bench: {cfg['name']}: energy refinement without "
+                         "energy_step_size, around which the step leaf is drawn")
+
+
 def build_port(cfg: dict, device):
-    """The program's serving pipeline for ``cfg``, its build checked
-    against the configuration file."""
-    from detrpose_tpu_torch.configs import model_config
-    from detrpose_tpu_torch.tools.infer import build_pipeline
+    """The program's serving pipeline for ``cfg``: its preset, with each key
+    of the ``model`` block, and ``msda_backend``, whose value differs from
+    the preset's, given to ``model_config``; the model and ``Pipeline`` are
+    built as ``tools/infer.py::build_pipeline`` builds them without a
+    checkpoint. A key the program's ``ModelConfig`` lacks ends the run."""
+    from detrpose_tpu_torch.configs import build_model, model_config
+    from detrpose_tpu_torch.tools.infer import Pipeline
+    from detrpose_tpu_torch.utils.device import resolve_device
 
     K = cfg["model"]["num_body_points"]
-    port_cfg = model_config(cfg["preset"], num_body_points=K)
-    differ = {k: (getattr(port_cfg, k), v) for k, v in cfg["model"].items()
-              if (list(getattr(port_cfg, k)) if isinstance(getattr(port_cfg, k), (tuple, list))
-                  else getattr(port_cfg, k)) != v}
-    if differ or port_cfg.msda_backend != cfg["msda_backend"]:
-        raise SystemExit(f"the program's preset {cfg['preset']!r} differs from "
-                         f"{cfg['name']}: {differ}, msda_backend {port_cfg.msda_backend}")
-    return build_pipeline(cfg["preset"], num_body_points=K, res=cfg["res"],
-                          dtype=getattr(torch, cfg["dtype"]), device=device,
-                          generator=torch.Generator().manual_seed(0))
+    preset = model_config(cfg["preset"], num_body_points=K)
+    block = {**cfg["model"], "msda_backend": cfg["msda_backend"]}
+    known = {f.name for f in dataclasses.fields(preset)}
+    missing = sorted(set(block) - known)
+    if missing:
+        raise SystemExit(f"h100_bench: {cfg['name']}: the program's ModelConfig has no key "
+                         f"{missing}")
+    overrides = {k: v for k, v in block.items()
+                 if (list(getattr(preset, k)) if isinstance(getattr(preset, k), (tuple, list))
+                     else getattr(preset, k)) != v}
+    overrides.pop("num_body_points", None)
+    dtype, dev = getattr(torch, cfg["dtype"]), resolve_device(device)
+    port_cfg = model_config(cfg["preset"], num_body_points=K, dtype=dtype, **overrides)
+    model = build_model(port_cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    return Pipeline(model, cfg["res"], K, dtype, dev)
 
 
 class Reservoir:
@@ -100,6 +128,9 @@ def run(ctx) -> dict:
     pool = [(frames[p] if B == 1 else frames[p * B:(p + 1) * B],
              wh if B == 1 else np.tile(np.asarray(wh, np.float32), (B, 1))) for p in range(P)]
     ctx.note("frames drawn")
+    check_block(cfg)
+    if ctx.fault == "skip_energy" and not refines(cfg):
+        raise SystemExit(f"h100_bench: {cfg['name']} has no energy refinement to skip")
     if ctx.control:
         return judge_control(ctx, pool)
 
@@ -108,12 +139,17 @@ def run(ctx) -> dict:
     # the leaves' names and shapes are the program's; after the window the
     # reference draws from its own, and a run whose two differ is not correct
     shapes = weights.leaf_shapes(model)
-    model.load_state_dict(weights.draw(shapes, ctx.seed, dev), strict=True)
+    model.load_state_dict(weights.draw(shapes, ctx.seed, dev, cfg["model"]), strict=True)
     ctx.note("program built, weights drawn")
     captured = {}
     hooks = []
+    if refines(cfg):    # what enters the refinement: the last layer's keypoints and logits
+        hooks.append(model.transformer.lqe_embed[-1].register_forward_hook(
+            lambda m, a, out: captured.update(pre=a[1], pre_logits=out)))
     if ctx.fault == "alter_logit":
         hooks.append(model.register_forward_hook(alter_logit))
+    if ctx.fault == "skip_energy":
+        hooks.append(model.register_forward_hook(skip_energy(captured)))
     hooks += [model.register_forward_hook(lambda m, a, out: captured.__setitem__("out", out)),
               model.transformer.enc_out_class_embed.register_forward_hook(
                   lambda m, a, out: captured.__setitem__("enc", out))]
@@ -143,7 +179,7 @@ def run(ctx) -> dict:
         ok = bool(torch.isfinite(s).all() and torch.isfinite(k).all())
         record["latencies"].append(t1 - t0 if ok else math.inf)
         record["failed"] += not ok
-        sample.offer((p, captured["out"], captured["enc"], s, l, k))
+        sample.offer((p, captured["out"], captured["enc"], captured.get("pre"), s, l, k))
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -190,6 +226,16 @@ def alter_logit(_m, _args, out):
     return {**out, "pred_logits": logits}
 
 
+def skip_energy(captured: dict):
+    """A planted fault: the model returns the keypoints and logits that
+    entered energy refinement (kept in ``captured``), as a program that
+    skipped it would."""
+    def hook(_m, _args, out):
+        return {**out, "pred_logits": captured["pre_logits"],
+                "pred_keypoints": captured["pre"].flatten(2)}
+    return hook
+
+
 @contextlib.contextmanager
 def no_tf32():
     """float32 arithmetic in full for the reference: no TF32 in cuBLAS or
@@ -202,25 +248,42 @@ def no_tf32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def refinement_input(net, captured: dict):
+    """Keep in ``captured["pre"]`` the keypoints (B, nq, K, 2) that enter
+    ``net``'s energy refinement, the argument of its last ``lqe_embed`` head."""
+    return net.transformer.lqe_embed[-1].register_forward_hook(
+        lambda m, a, out: captured.__setitem__("pre", a[1]))
+
+
+def refinement_step(out: dict, pre) -> torch.Tensor:
+    """Energy refinement's step on the keypoints: those returned less those
+    that entered it, (B, nq, K, 2) float32."""
+    return out["pred_keypoints"].float().reshape(pre.shape) - pre.float()
+
+
 def judge_sample(ctx, pool, items, shapes=None):
     """The reference over each sampled request, with the program's query
     selection; the worst reading of each number, and how the program's
     selection and the reference's own differ."""
     cfg, dev, nq = ctx.config, ctx.device, ctx.config["model"]["num_queries"]
     K = cfg["model"]["num_body_points"]
+    numbers = NUMBERS if refines(cfg) else NUMBERS[:-1]     # energy_kpt_rel is last
     with no_tf32():
         ref = weights.reference_net(cfg["model"], ctx.seed, dev)
         if shapes is not None and weights.leaf_shapes(ref) != shapes:
-            return dict.fromkeys(NUMBERS, math.inf), {}     # not the reference's leaves
+            return dict.fromkeys(numbers, math.inf), {}     # not the reference's leaves
+        ref_in = {}
+        if refines(cfg):
+            refinement_input(ref, ref_in)
         feats = {}
         readings, differ = [], []
-        for p, out, enc, s, l, k in items:
+        for p, out, enc, pre, s, l, k in items:
             if p not in feats:
                 feats[p] = features(ref, pool[p][0], cfg["res"], dev)
             chosen = enc.max(dim=-1).values.topk(nq, dim=1).indices
             wh = np.asarray(pool[p][1], np.float32).reshape(-1, 2)
             if chosen.shape[0] != len(wh) or s.shape[0] != len(wh):
-                readings.append(dict.fromkeys(NUMBERS, math.inf))   # answers missing
+                readings.append(dict.fromkeys(numbers, math.inf))   # answers missing
                 continue
             r = decode_from(ref, feats[p], chosen)
             differ.append(judge.selection_differ(chosen, r["scores"], nq))
@@ -231,6 +294,10 @@ def judge_sample(ctx, pool, items, shapes=None):
                 "kpt_rms": judge.kpt_rms(out["pred_keypoints"], r["pred_keypoints"]),
                 "decode_mismatch": judge.decode_mismatch((s, l, k),
                                                          tuple(t.cpu() for t in decoded))})
+            if refines(cfg):
+                readings[-1]["energy_kpt_rel"] = (
+                    math.inf if pre is None else judge.energy_kpt_rel(
+                        refinement_step(out, pre), refinement_step(r, ref_in["pre"])))
     sel = {}
     if differ:
         d = torch.cat(differ)
@@ -247,6 +314,9 @@ def judge_control(ctx, pool) -> dict:
     cfg, dev, tr = ctx.config, ctx.device, ctx.traffic
     K = cfg["model"]["num_body_points"]
     ctl = quantize_(weights.reference_net(cfg["model"], ctx.seed, dev))
+    ctl_in = {}
+    if refines(cfg):
+        refinement_input(ctl, ctl_in)
     rng = np.random.default_rng(ctx.seed)
     items = []
     for p in rng.integers(0, len(pool), tr["check_requests"]):
@@ -254,7 +324,7 @@ def judge_control(ctx, pool) -> dict:
         r = decode_from(ctl, features(ctl, pool[p][0], cfg["res"], dev))
         wh = torch.as_tensor(np.asarray(pool[p][1], np.float32).reshape(-1, 2), device=dev)
         s, l, k = ref_postprocess(r, wh, num_body_points=K)
-        items.append((p, r, r["scores"], s.cpu(), l.cpu(), k.cpu()))
+        items.append((p, r, r["scores"], ctl_in.get("pre"), s.cpu(), l.cpu(), k.cpu()))
     del ctl
     ctx.free()
     checks, selection = judge_sample(ctx, pool, items)

@@ -20,6 +20,16 @@ from .models.hgnetv2 import HGNetv2
 from .models.hybrid_encoder import HybridEncoder
 from .models.transformer import Transformer
 
+# the keys of a ``model`` block that ``build`` reads: every configuration
+# states the first; the variants (the experimental MSDA branches, FastKAN,
+# energy refinement) take the reference's defaults where a block leaves them out
+REQUIRED = ("num_body_points", "num_classes", "num_queries", "backbone_name", "use_lab",
+            "return_idx", "in_channels", "n_levels", "hidden_dim", "enc_dim_feedforward",
+            "use_encoder_idx", "expansion", "depth_mult", "num_decoder_layers",
+            "dec_dim_feedforward", "dec_n_points", "reg_max", "reg_scale")
+VARIANTS = MSDA_BRANCHES + ("use_kan", "kan_grid", "use_energy_refinement", "energy_steps",
+                            "energy_step_size", "grad_energy", "energy_decrease_weight")
+
 
 def build(model: Dict[str, Any], device: torch.device | str = "cpu") -> DETRPose:
     """DETRPose in eval mode and float32 on ``device`` from the ``model``
@@ -39,6 +49,6 @@ def build(model: Dict[str, Any], device: torch.device | str = "cpu") -> DETRPose
             dim_feedforward=model["dec_dim_feedforward"], num_feature_levels=model["n_levels"],
             dec_n_points=model["dec_n_points"], num_classes=model["num_classes"],
             num_body_points=model["num_body_points"], reg_max=model["reg_max"],
-            reg_scale=model["reg_scale"], **{k: model[k] for k in MSDA_BRANCHES if k in model})
+            reg_scale=model["reg_scale"], **{k: model[k] for k in VARIANTS if k in model})
         net = DETRPose(backbone, encoder, transformer)
     return net.float().eval()

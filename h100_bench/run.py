@@ -26,8 +26,8 @@ the program's place and prints the numbers it reads; it measures nothing.
 
 The run fails, with no result, where no CUDA device is present, where the
 cell asks for more devices than there are, where the card has no entry in
-``peaks.py``, or where JAX or the JAX package is loaded once the window has
-closed.
+``peaks.py``, where the cell's limits name no limit for a number the run
+reads, or where JAX or the JAX package is loaded once the window has closed.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ from typing import List, Optional
 ROOT = Path(__file__).resolve().parents[1]
 BENCH_DIR = Path(__file__).resolve().parent
 # faults planted under the timed path, to show that the comparison fails them
-FAULTS = ("half_batch", "alter_answer", "alter_logit")
+FAULTS = ("half_batch", "alter_answer", "alter_logit", "skip_energy")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "detrpose_tpu")
 
 
@@ -171,6 +171,10 @@ def execute(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     limits_path = root / "h100_bench" / "limits" / f"{workload}.json"
     limits = json.loads(limits_path.read_text()) if limits_path.exists() else {}
+    unnamed = sorted(set(rec["checks"]) - set(limits))
+    if unnamed:     # a number the run reads is always compared
+        raise SystemExit(f"h100_bench: {workload}: h100_bench/limits/{workload}.json names "
+                         f"no limit for {unnamed}")
     # the numbers compared are those the cell's limits name; one the run
     # did not give reads as infinite
     checks = {k: {"value": _finite(rec["checks"].get(k, math.inf)), "limit": lim}
