@@ -508,9 +508,10 @@ class TransformerDecoder(nn.Module):
                     corners_all.append(corners)
         energy_reg = None
         if hasattr(self, "energy_layer"):
-            corners, kpts, logits, energy_reg = self._energy_refine(
-                corners, kpts, logits, query_pos, layer_ref, value, spatial_shapes,
-                attn_mask)
+            with span("decoder.energy"):
+                corners, kpts, logits, energy_reg = self._energy_refine(
+                    corners, kpts, logits, query_pos, layer_ref, value, spatial_shapes,
+                    attn_mask)
             if train:
                 poses[-1], logits_all[-1], corners_all[-1] = kpts, logits, corners
         if not train:
@@ -541,6 +542,10 @@ class TransformerDecoder(nn.Module):
         second for the gradient, whatever the model's backend: under
         ``"pallas"`` the main layers launch kernel #2 and the energy layer
         kernel #1, whose op has a gradient.
+
+        Profiler spans: ``decoder.energy`` around the call (in ``forward``),
+        ``energy.step`` around each step and ``energy.grad`` around each
+        ``torch.autograd.grad``.
         """
         if self.grad_energy and torch.is_inference_mode_enabled():
             raise RuntimeError("energy refinement with grad_energy=True takes a gradient "
@@ -565,19 +570,24 @@ class TransformerDecoder(nn.Module):
         reg = torch.zeros((), dtype=torch.float32, device=z.device)
         e_prev = None
         for _ in range(self.energy_steps):
-            e_raw = energy(z)
-            e = e_raw.reshape(e_raw.shape[0], -1).mean(1)
-            if e_prev is not None and lam > 0:
-                reg = reg + lam * F.relu(e - e_prev.detach()).mean()
-            e_prev = e
-            if self.grad_energy:
-                with torch.enable_grad():
-                    zz = z if z.requires_grad else z.detach().requires_grad_()
-                    e_g = energy(zz)
-                    g, = torch.autograd.grad(e_g.reshape(e_g.shape[0], -1).mean(1).sum(),
-                                             zz, create_graph=record)
-                z = z - step * g
-            else:
-                z = z - step * e_raw
+            with span("energy.step"):
+                e_raw = energy(z)
+                e = e_raw.reshape(e_raw.shape[0], -1).mean(1)
+                if e_prev is not None and lam > 0:
+                    reg = reg + lam * F.relu(e - e_prev.detach()).mean()
+                e_prev = e
+                if self.grad_energy:
+                    with torch.enable_grad():
+                        zz = z if z.requires_grad else z.detach().requires_grad_()
+                        e_g = energy(zz)
+                        # on the card autograd runs the backward on its own
+                        # thread while this one waits inside the span
+                        with span("energy.grad"):
+                            g, = torch.autograd.grad(
+                                e_g.reshape(e_g.shape[0], -1).mean(1).sum(), zz,
+                                create_graph=record)
+                    z = z - step * g
+                else:
+                    z = z - step * e_raw
         return (z[:, :, :-1, :nc].to(corners.dtype), z[:, :, :-1, nc:].to(kpts.dtype),
                 z[:, :, -1, :C].to(logits.dtype), reg)

@@ -367,6 +367,12 @@ BACKWARD_RANGE = "msda_fwd_backward"   # the profiler range of the op's backward
 
 
 def _backward(ctx, grad_out):
+    # All of the backward's device work is launched inside BACKWARD_RANGE,
+    # on the thread autograd runs it on (its own device thread on the card):
+    # the benchmark's backward roofline (h100_bench/bounds_msda_bwd.py) reads
+    # the work of one such range. A hand-written backward kernel that takes
+    # this place opens the same range around its launches, so that the
+    # roofline reads the same work whatever implements it.
     value, loc, aw = ctx.saved_tensors
     need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
     if torch.is_grad_enabled():

@@ -7,6 +7,7 @@ top-k decode scaled to the original size, threshold 0.5) and
 tools/inference/annotator.py (the skeleton overlay).
 
   run = build_pipeline("l")                       # on the CUDA device
+  run = build_pipeline("l", use_energy_refinement=True, grad_energy=True)
   scores, labels, kpts = run(img_u8, (w, h))      # img_u8 (H, W, 3) uint8
 
   python -m detrpose_tpu_torch.tools.infer --size l --ckpt ckpt.pth --input img.jpg
@@ -120,16 +121,19 @@ class Pipeline:
 def build_pipeline(size: str, num_body_points: int = 17, ckpt: Optional[str] = None,
                    res: int = 640, dtype: torch.dtype = torch.bfloat16,
                    device: torch.device | str = "cuda",
-                   generator: Optional[torch.Generator] = None) -> Pipeline:
+                   generator: Optional[torch.Generator] = None, **overrides) -> Pipeline:
     """Build the serving pipeline of one model size.
 
-    ``ckpt`` is a reference zoo ``.pth``, a Trainer checkpoint or the JAX
-    package's orbax directory (EMA weights preferred); without one
-    the weights are drawn from ``generator`` (seed 0 if None). Runs on the CUDA
-    device unless ``device="cpu"`` is given.
+    ``overrides`` go to ``model_config`` on top of the preset (a decoder
+    variant, e.g. ``use_energy_refinement=True, grad_energy=True``); a key
+    ``ModelConfig`` lacks raises ``TypeError``. ``ckpt`` is a reference zoo
+    ``.pth``, a Trainer checkpoint or the JAX package's orbax directory (EMA
+    weights preferred), loaded into the model the overrides built; without
+    one the weights are drawn from ``generator`` (seed 0 if None). Runs on
+    the CUDA device unless ``device="cpu"`` is given.
     """
     dev = resolve_device(device)
-    cfg = model_config(size, num_body_points=num_body_points, dtype=dtype)
+    cfg = model_config(size, num_body_points=num_body_points, dtype=dtype, **overrides)
     model = build_model(cfg, device=dev, generator=generator)
     if ckpt:
         model.load_state_dict(drop_derived(load_torch_checkpoint(ckpt)), strict=True)

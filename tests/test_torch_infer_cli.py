@@ -8,6 +8,9 @@ checkpoint layout (EMA preferred); ``_preprocess_image`` bit for bit against
 JAX's (``detrpose_tpu/tools/benchmark.py``) on its own battery of sizes;
 ``bench_data`` at N, batch 1, over 4 synthetic JPEGs, with JAX's keys.
 Without ``--device cpu`` both default to the CUDA device and raise without one.
+``build_pipeline`` takes ``model_config``'s keys as keyword overrides (the
+energy refinement variant serves a frame; a checkpoint of that variant
+loads into it), and refuses a key ``ModelConfig`` lacks.
 """
 import os
 import subprocess
@@ -99,6 +102,33 @@ def test_checkpoint_prefers_ema(tmp_path):
     run = infer.build_pipeline("n", ckpt=path, device="cpu")
     for k, v in run.model.state_dict().items():
         assert torch.equal(v, b.model.state_dict()[k].to(v.dtype)), k
+
+
+ENERGY = dict(use_energy_refinement=True, grad_energy=True)
+
+
+def test_build_pipeline_serves_the_energy_variant(tmp_path):
+    run = infer.build_pipeline("n", device="cpu", **ENERGY)
+    decoder = run.model.transformer.decoder
+    assert hasattr(decoder, "energy_layer") and decoder.grad_energy
+    assert decoder.energy_steps == 3
+    rgb = np.random.default_rng(3).integers(0, 256, (120, 160, 3), np.uint8)
+    scores, labels, kpts = run(rgb, (160, 120))
+    assert scores.shape == labels.shape == (1, 60) and kpts.shape == (1, 60, 17, 3)
+    assert torch.isfinite(scores).all() and torch.isfinite(kpts).all()
+    # a checkpoint of the variant loads into the model the overrides built
+    src = infer.build_pipeline("n", device="cpu", generator=torch.Generator().manual_seed(4),
+                               **ENERGY)
+    path = str(tmp_path / "energy.pth")
+    torch.save({"model": src.model.state_dict()}, path)
+    loaded = infer.build_pipeline("n", ckpt=path, device="cpu", **ENERGY)
+    for k, v in loaded.model.state_dict().items():
+        assert torch.equal(v, src.model.state_dict()[k]), k
+
+
+def test_build_pipeline_refuses_an_unknown_key():
+    with pytest.raises(TypeError, match="bogus"):
+        infer.build_pipeline("n", device="cpu", bogus=1)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path):
