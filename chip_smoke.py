@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero before the last line is printed):
   1. require CUDA; print the card's name and power limit; TF32 off for the
      comparisons;
-  2. build the CUDA kernels from detrpose_tpu_torch/csrc, one nvcc per
+  2. build the CUDA kernels from detrpose_tpu_torch/csrc (kernel #1's
+     backward, csrc/msda_bwd.cu, among them), one nvcc per
      source, all at once, into an emptied build directory; print ptxas's
      registers, stack frame and spills per kernel instantiation, and fail if
      any library has no ptxas report or another count of instantiations
@@ -30,7 +31,12 @@ Phases (any failure exits non-zero before the last line is printed):
      12, 4 levels and on maps 2 elements into their buffers, on the same
      packed bf16 values (1e-5 of max|ref|); and check that points outside
      every map give exactly 0, and NaN and +-1e30 coordinates too, from
-     kernels #1, #2, #3, #4 and #5's full, stage1_only and no_cexp;
+     kernels #1, #2, #3, #4 and #5's full, stage1_only and no_cexp; and
+     kernel #1's backward (the location and weight gradients) against the
+     op's plain path at the small, the energy cell's (L eval, bs 32), the
+     odd and 4-level shapes and on a shifted map, float32 and bf16 values,
+     within 1e-5 of max|ref|, NaN where the plain version's gradients are
+     for NaN and +-1e30 points;
   4. DETRPose-L at full width (seeded random weights, the reference's
      zero-initialised leaves perturbed), bs 2 at 640 px in float32: the
      forward with msda_backend "auto" (kernel #1) and "pallas" (kernel #2)
@@ -86,7 +92,8 @@ Phases (any failure exits non-zero before the last line is printed):
      share, kernel families, the share of kernel #1's plain-version backward
      by its profiler range, and that backward timed alone; each phase of
      the step, the update's clip, AdamW and EMA among them, by its host and
-     device time), and the
+     device time), kernel #1's backward at the energy cell's shapes against
+     the op's plain path and its bound, and the
      matcher's time with the auction and with scipy;
   9. main path 5, the Trainer: synthetic COCO-format sets written as JPEG
      files (32 train and 16 val images of 640x480 and 480x640, 1-6
@@ -227,6 +234,7 @@ import torch.nn.functional as F
 from PIL import Image, ImageDraw
 
 import bench_torch
+from h100_bench.bounds_msda_bwd import OPS_PER_TAP_CHANNEL
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.data.evaluator import KeypointEvaluator
 from detrpose_tpu_torch.models import MSDeformAttn, postprocess
@@ -236,7 +244,8 @@ from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_defo
                                          msda_forward, msda_perquery, msda_tpose)
 from detrpose_tpu_torch.ops.cuda.build import BUILD_DIR
 from detrpose_tpu_torch.ops.cuda.msda import (BACKWARD_RANGE, SMEM_OPTIN, TPOSE_BARRIER,
-                                              gather_plan, ms_deform_attn_fast_flat)
+                                              backward_plan, gather_plan,
+                                              ms_deform_attn_fast_flat, msda_backward)
 from detrpose_tpu_torch.ops.cuda.msda_ablate import MODES, TILES, msda_ablate_plain
 from detrpose_tpu_torch.ops.cuda.msda_colsin import TILE, msda_colsin_plain
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (ms_deform_attn_pallas_flat,
@@ -323,7 +332,12 @@ PATH8_SHAPES = {"N160t16": dict(N160_SHAPES, B=16, Lq=124 * 18),
 # nP, #3 load width, #4 level count x taps from shared or device memory, #5
 # mode x load width and no_cexp's row pass
 INSTANTIATIONS = {"msda_fwd": 21, "msda_perquery": 21, "msda_colsin": 4, "msda_tpose": 8,
-                  "msda_ablate": 19}
+                  "msda_ablate": 19, "msda_bwd": 21}
+# the libraries phase 2 builds: each kernel's, and kernel #1's backward
+# (csrc/msda_bwd.cu: dtype x load width x nP, as #1)
+LIBRARIES = {**KERNELS, "msda_bwd": msda_backward}
+# what main path 7 counts: the kernels' launches and the backward kernel's
+COUNTED = tuple(LIBRARIES)
 COLSIN_TILES = (TILE, 512)     # #3's default tile and the TPU kernel's TP
 # main path 5, the Trainer: synthetic COCO-format sets (images, 17- and
 # 14-keypoint poses) and the L recipe's batches (configs/_base.py: 16 images
@@ -433,6 +447,7 @@ def ptxas_report(log):
 def zero_launch_counts():
     for k in KERNELS.values():
         k.launches = 0
+    msda_backward.launches = msda_backward.plain = 0
 
 
 def shifted(t, k=2):
@@ -1142,6 +1157,88 @@ def _check_train_op(g):
                 fail(f"kernel #1's op disagrees with the plain version on its {what} at the "
                      f"{label} train shapes, {dtype}")
         del ins, results
+
+
+def check_backward_kernel(g):
+    """Phase 3: kernel #1's backward (csrc/msda_bwd.cu) against the op's
+    plain path, autograd through the plain version for the locations and
+    weights, at the small shapes, at the energy cell's (L eval, bs 32), at
+    the odd and 4-level shapes and on a map 2 elements into its buffer,
+    float32 and bf16 values, each gradient within 1e-5 of its max|ref| (the
+    same float32 sums in another order); and where some points are NaN or
+    +-1e30, NaN exactly where the plain version's gradients are. Returns the
+    max|err| at the energy cell's shapes in bf16."""
+    err_l = 0.0
+    for label, shp in (("test", TEST_SHAPES), ("L", L_SHAPES), ("odd", ODD_SHAPES),
+                       ("nL4", NL4_SHAPES), ("offset", TEST_SHAPES), ("nan", TEST_SHAPES)):
+        for dtype in (torch.float32, torch.bfloat16):
+            value, levels, loc, aw = msda_inputs(g, dtype, **shp)
+            if label == "offset":
+                value = shifted(value)
+            if label == "nan":
+                bad = torch.tensor([float("nan"), 1e30, -1e30], device="cuda")
+                pick = torch.randint(0, 6, loc.shape, device="cuda", generator=g)
+                loc = torch.where(pick < 3, bad[pick.clamp(max=2)], loc)
+            grad = torch.randn(value.shape[0], loc.shape[1], value.shape[2], device="cuda",
+                               generator=g).to(dtype)
+            got = msda_backward(value, levels, loc, aw, grad)
+            ins = [loc.clone().requires_grad_(), aw.clone().requires_grad_()]
+            with torch.enable_grad():
+                want = torch.autograd.grad(ms_deform_attn_core(value, levels, *ins), ins, grad)
+            torch.cuda.synchronize()
+            plan = backward_plan(shp["dh"], value.element_size(),
+                                 (value.data_ptr(), grad.data_ptr()), 1)
+            for what, a, b in zip(("location grad", "weight grad"), got, want):
+                same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+                err = (a - b).nan_to_num().abs().max().item()
+                scale = b.nan_to_num().abs().max().item()
+                print(f"[3] msda_bwd      {label:6s} {str(dtype):14s} {what:13s} {plan.vec} "
+                      f"channels per load, {plan.lanes} lanes a head, max|err| {err:.3e} "
+                      f"max|ref| {scale:.3e} (limit 1e-05 of max|ref|), NaN where the "
+                      f"plain version's: {same_nan}")
+                if not (same_nan and err <= 1e-5 * scale):
+                    fail(f"kernel #1's backward disagrees with the plain version on its "
+                         f"{what} at {label} {dtype}")
+                if label == "L" and dtype == torch.bfloat16:
+                    err_l = max(err_l, err)
+            del value, loc, aw, grad, got, ins, want
+    return err_l
+
+
+def msda_backward_times(g, card):
+    """Phase 8: kernel #1's backward alone at the energy cell's shapes (L
+    eval, bs 32, 60 x 18 queries, bf16 values, the locations' and weights'
+    gradients only), CUDA events: the kernel, the op's plain path (autograd
+    through the plain version) and the bound (the bytes of
+    h100_bench/bounds_msda_bwd.py: value map and output gradient in bf16,
+    the float32 points and their gradients, each once; or its 24 float32
+    operations per tap and channel); returns the numbers."""
+    value, levels, loc, aw = msda_inputs(g, torch.bfloat16, **L_SHAPES)
+    grad = torch.randn(value.shape[0], loc.shape[1], value.shape[2], device="cuda",
+                       generator=g).to(value.dtype)
+    ins = [loc.clone().requires_grad_(), aw.clone().requires_grad_()]
+
+    def plain():
+        with torch.enable_grad():
+            return torch.autograd.grad(ms_deform_attn_core(value, levels, *ins), ins, grad)
+
+    kernel = lambda: msda_backward(value, levels, loc, aw, grad)
+    k_ms = cuda_time_ms(kernel, iters=50)
+    traced = kernel_times(kernel, n=10)
+    p_ms = cuda_time_ms(plain, iters=5)
+    grads = kernel()
+    bound = msda_bound_ms(nbytes(value, grad, loc, aw, *grads),
+                          OPS_PER_TAP_CHANNEL * aw.numel() * L_SHAPES["dh"])
+    gather_bytes = 4 * aw.numel() * L_SHAPES["dh"] * value.element_size()
+    print(f"[8] msda_bwd at the energy cell's shapes (B32 Lq1080 80/40/20 nP4 dh32, bf16 "
+          f"values, location and weight gradients): kernel {k_ms:.4f} ms (its device time "
+          f"{sum(k[1] for k in traced):.4f} ms over {sum(k[2] for k in traced)} launches a "
+          f"call), plain path {p_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+          f"{nbytes(value, grad, loc, aw, *grads) / 1e6:.2f} MB), {100 * bound[0] / k_ms:.2f}% "
+          f"of it; corner-row traffic {gather_bytes / 1e6:.1f} MB through L2 in "
+          f"{k_ms:.4f} ms = {gather_bytes / k_ms / 1e9:.3f} TB/s; on {card}")
+    return {"ms": k_ms, "device_ms": sum(k[1] for k in traced), "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def msda_backward_alone(g):
@@ -1981,25 +2078,36 @@ TRAIN_VARIANTS = {
 }
 
 
-def variant_launches(flags, backend):
-    """Kernel launches of one L forward (or train micro-step) under
-    ``backend``: one MSDA call a main decoder layer (6), a second one a layer
-    with the grid branch (12), on the backend's kernel; energy refinement
-    adds one a step on kernel #1 (the energy layer runs on "auto", as JAX
-    builds it), two with grad_energy (the energy and its gradient's forward;
-    the op's backward runs the plain version). "gather" is the all-plain
-    reference (``set_energy_backend``): no launch."""
+def variant_launches(flags, backend, train=False):
+    """Kernel launches of one L forward (or, with ``train``, train
+    micro-step) under ``backend``: one MSDA call a main decoder layer (6), a
+    second one a layer with the grid branch (12), on the backend's kernel;
+    energy refinement adds one a step on kernel #1 (the energy layer runs on
+    "auto", as JAX builds it), two with grad_energy (the energy and its
+    gradient's forward). The gradient's backward (``msda_bwd``) launches
+    kernel #1's backward kernel once a step in a forward, where it is not
+    recorded and the value wants no gradient; a train micro-step records it
+    and takes the plain path. "gather" is the all-plain reference
+    (``set_energy_backend``): no launch."""
     cfg = model_config("l", **flags)
     main = cfg.num_decoder_layers * (2 if flags.get("use_grid_attention") else 1)
-    energy = 0
+    energy = grads = 0
     if flags.get("use_energy_refinement"):
         energy = flags["energy_steps"] * (2 if flags.get("grad_energy") else 1)
+        grads = flags["energy_steps"] if flags.get("grad_energy") and not train else 0
     want = {k: 0 for k in KERNELS}
+    want["msda_bwd"] = 0 if backend == "gather" else grads
     if backend == "auto":
         want["msda_fwd"] = main + energy
     elif backend == "pallas":
         want["msda_perquery"], want["msda_fwd"] = main, energy
     return want
+
+
+def variant_counts():
+    """The kernels' launches and kernel #1's backward's since
+    ``zero_launch_counts``, as ``variant_launches`` gives them."""
+    return {**launch_counts(), "msda_bwd": msda_backward.launches}
 
 
 def energy_attn(model):
@@ -2041,7 +2149,7 @@ def check_variant(name, flags, x):
     of the plain version's, exact launch counts; returns the model (backend
     "auto") and the launches of the kernels' runs."""
     model = variant_model(flags)
-    outs, total = {}, {k: 0 for k in KERNELS}
+    outs, total = {}, {k: 0 for k in COUNTED}
     for backend in ("gather", "auto", "pallas"):
         set_backend(model, backend)
         set_energy_backend(model, "gather" if backend == "gather" else "auto")
@@ -2049,12 +2157,12 @@ def check_variant(name, flags, x):
         with torch.no_grad():
             outs[backend] = model(x)
         torch.cuda.synchronize()
-        counts = launch_counts()
+        counts = variant_counts()
         want = variant_launches(flags, backend)
-        if counts != want:
-            fail(f"{name} L forward with msda_backend={backend!r} launched {counts}, "
-                 f"expected {want}")
-        total = {k: total[k] + counts[k] for k in KERNELS}
+        if counts != want or msda_backward.plain:
+            fail(f"{name} L forward with msda_backend={backend!r} launched {counts} and took "
+                 f"the plain backward {msda_backward.plain} times, expected {want} and 0")
+        total = {k: total[k] + counts[k] for k in COUNTED}
     for backend in outs:
         if backend != "gather":
             compare_outputs(f"11 {name} {backend} vs gather", outs[backend], outs["gather"],
@@ -2077,8 +2185,8 @@ def check_train_variant(name, flags, batch):
     batch, deterministic algorithms) through "auto" and through "gather" on
     the same weights, as phase 5; returns kernel #1's launches."""
     model = variant_model(flags).train()
-    runs, launched, peak = {}, {k: 0 for k in KERNELS}, {}
-    n = variant_launches(flags, "auto")["msda_fwd"]
+    runs, launched, peak, plain = {}, {k: 0 for k in COUNTED}, {}, {}
+    n = variant_launches(flags, "auto", train=True)["msda_fwd"]
     for backend in ("auto", "gather"):
         set_backend(model, backend)
         set_energy_backend(model, backend)
@@ -2088,13 +2196,16 @@ def check_train_variant(name, flags, batch):
         torch.cuda.reset_peak_memory_stats()
         metrics = step(batch)
         torch.cuda.synchronize()
-        counts = launch_counts()
-        want = variant_launches(flags, backend)
-        if counts != want:
-            fail(f"{name} L train micro-step with msda_backend={backend!r} launched {counts}, "
-                 f"expected {want}")
+        counts = variant_counts()
+        want = variant_launches(flags, backend, train=True)
+        plain[backend] = msda_backward.plain
+        # the op's backward takes the plain path wherever the op ran
+        if counts != want or (plain[backend] > 0) != (backend == "auto"):
+            fail(f"{name} L train micro-step with msda_backend={backend!r} launched {counts} "
+                 f"and took the plain backward {plain[backend]} times, expected {want} and "
+                 f"{'some' if backend == 'auto' else 0}")
         peak[backend] = torch.cuda.max_memory_allocated() / 2**30
-        launched = {k: launched[k] + counts[k] for k in KERNELS}
+        launched = {k: launched[k] + counts[k] for k in COUNTED}
         grads = {p_name: p.grad.detach().clone() for p_name, p in model.named_parameters()
                  if p.grad is not None}
         model.zero_grad(set_to_none=True)
@@ -2125,7 +2236,8 @@ def check_train_variant(name, flags, batch):
           f"terms, worst relative difference {worst_loss:.3e} (limit 1e-4); {len(gg)} "
           f"gradients, worst max|diff| / max|g| {errs[0][0]:.3e} at {errs[0][1]} (limit "
           f"1e-3); {len(zero)} leaves 0 up to rounding, worst max|diff| {zero_err:.3e} of the "
-          f"largest |g| {top:.3e} (limit 1e-5); kernel #1 {n} launches; peak memory "
+          f"largest |g| {top:.3e} (limit 1e-5); kernel #1 {n} launches, its backward "
+          f"{plain['auto']} plain and 0 by kernel; peak memory "
           f"{peak['auto']:.2f} / {peak['gather']:.2f} GiB")
     if not worst_loss <= 1e-4:
         fail(f"{name} train step: the loss terms differ between 'auto' and 'gather'")
@@ -2210,11 +2322,11 @@ def variants_path(card, gen, g):
     x = torch.rand(2, 3, 640, 640, generator=gen).cuda()
     xb = torch.rand(32, 3, 640, 640, generator=gen).cuda().to(torch.bfloat16)
     ts = torch.full((32, 2), 640.0, device="cuda")
-    total = {k: 0 for k in KERNELS}
+    total = {k: 0 for k in COUNTED}
     serve = {}
     for name, flags in VARIANTS.items():
         model, launched = check_variant(name, flags, x)
-        total = {k: total[k] + launched[k] for k in KERNELS}
+        total = {k: total[k] + launched[k] for k in COUNTED}
         model.to(torch.bfloat16)
         serve[name] = serve_ms(model, xb, ts)
         del model
@@ -2233,7 +2345,7 @@ def variants_path(card, gen, g):
     try:
         for name, flags in TRAIN_VARIANTS.items():
             launched = check_train_variant(name, flags, batch)
-            total = {k: total[k] + launched[k] for k in KERNELS}
+            total = {k: total[k] + launched[k] for k in COUNTED}
             torch.cuda.empty_cache()
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2257,10 +2369,10 @@ def variants_path(card, gen, g):
     with tempfile.TemporaryDirectory() as root:
         tools_out = cli_and_bench_data(card, root)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = variant_counts()
     if counts["msda_fwd"] == 0:
         fail("the command line and bench_data never launched kernel msda_fwd")
-    total = {k: total[k] + counts[k] for k in KERNELS}
+    total = {k: total[k] + counts[k] for k in COUNTED}
     seconds = time.perf_counter() - t_phase
     print(f"[11] main path 7: kernel launches {total}; {seconds:.1f} s")
     return total, {"serve_ms": serve, "kernel_ms": kernel_ms, "tools": tools_out,
@@ -2712,9 +2824,9 @@ def main():
     # an emptied build directory: every library is built here, so ptxas reports
     shutil.rmtree(BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        logs = dict(zip(KERNELS, pool.map(lambda k: k.build(), KERNELS.values())))
-    print(f"[2] built {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        logs = dict(zip(LIBRARIES, pool.map(lambda k: k.build(), LIBRARIES.values())))
+    print(f"[2] built {len(LIBRARIES)} libraries in {time.perf_counter() - t0:.2f} s")
     n_inst = 0
     for name, log in logs.items():
         report = ptxas_report(log)
@@ -2735,6 +2847,7 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(SEED)
     max_abs_err = check_kernels(g)
     check_train_op(g)
+    max_abs_err["msda_bwd"] = check_backward_kernel(g)
 
     # ---- 4, 5. the L model: kernels vs plain MSDA, deploy vs train form
     gen = torch.Generator().manual_seed(SEED)
@@ -2935,6 +3048,7 @@ def main():
     print(f"[8] kernel #1's op at the L train shapes (bs {TRAIN_BATCH}, 124 x 18 queries, bf16): "
           f"forward {bwd_alone[0]:.4f} ms, its plain-version backward {bwd_alone[1]:.4f} ms a "
           f"call (x6 = {6 * bwd_alone[1]:.3f} ms a micro-step); on {card}")
+    bwd_kernel = msda_backward_times(g, card)
     logits, kpts, _ = branch_assignments(tstep.model, tbatch)
     matcher_ms = {b: cuda_time_ms(lambda b=b: hungarian_match(logits, kpts, tbatch["targets"], 17,
                                                               backend=b), iters=5)
@@ -2981,6 +3095,9 @@ def main():
     torch.cuda.empty_cache()
     counts_path9, path9_numbers = training_start_path(card)
     total = {k: total[k] + counts_path9[k] for k in KERNELS}
+    # kernel #1's backward kernel runs only in a forward with energy
+    # refinement's gradient: main path 7's, which counts it
+    total["msda_bwd"] = counts_variants7["msda_bwd"]
 
     # ---- 14. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
@@ -3013,6 +3130,7 @@ def main():
                       "train": {"bench": bench_train, "trace": split,
                                 "msda_op_train_shapes_ms": {"forward": bwd_alone[0],
                                                             "backward": bwd_alone[1]},
+                                "msda_bwd_energy_shapes_ms": bwd_kernel,
                                 "matcher_ms": matcher_ms},
                       "trainer": trainer_numbers, "data_parallel": dp_numbers,
                       "variants": variant_numbers, "path8": path8_numbers,
@@ -3022,7 +3140,12 @@ def main():
         "replaces": sources[name][1], "launches": total[name],
         "max_abs_err": max_abs_err[name], "ms": rows[name][0], "plain_ms": rows[name][1],
         "bound_ms": rows[name][2], "bound_by": rows[name][3], "library_ms": None}
-        for name in KERNELS]}))
+        for name in KERNELS] + [{
+        "name": "msda_bwd", "route": "cuda", "source": "detrpose_tpu_torch/csrc/msda_bwd.cu",
+        "replaces": None, "launches": total["msda_bwd"],
+        "max_abs_err": max_abs_err["msda_bwd"], "ms": bwd_kernel["ms"],
+        "plain_ms": bwd_kernel["plain_ms"], "bound_ms": bwd_kernel["bound_ms"],
+        "bound_by": bwd_kernel["bound_by"], "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 // forward kernels csrc/msda_fwd.cu (kernel #1) and csrc/msda_perquery.cu
 // (kernel #2), and the per-point kernels csrc/msda_ablate.cu (kernel #5, all
 // four modes) and csrc/msda_tpose.cu (kernel #4, which takes only the
-// level tables from here).
+// level tables from here), and the backward of kernel #1's op,
+// csrc/msda_bwd.cu, which fetches its corners through corner_rows_px.
 //
 // Kernels #1 and #2 compute, for each row (a query of one image, or a query
 // of one (image, head)) and each head in that row, the sum over levels and
@@ -129,20 +130,22 @@ __device__ __forceinline__ void store_f32(float* p, const float (&acc)[V]) {
   }
 }
 
-// One point's four corners at pixel coordinates (ix, iy) for V channels of
-// one head: loads their rows into r and their weights a * hat * hat into w.
-// `level` points at the thread's channels in the level's first pixel; pixel
-// i's are at level + i * stride. Corner indices are clamped into the map in
-// float and the weights selected, so a corner off the map, or of a NaN or
-// huge coordinate, loads an in-map row with weight exactly 0.f.
+// The four corners of one point whose top-left corner is (x0, y0) =
+// (floor(ix), floor(iy)), for V channels of one head, in the order (x0, y0),
+// (x0, y1), (x1, y0), (x1, y1): loads their rows into r and says in `in`
+// whether each lies in the map. `level` points at the thread's channels in
+// the level's first pixel; pixel i's are at level + i * stride. Corner
+// indices are clamped into the map in float, so a corner off the map, or of
+// a NaN or huge coordinate, loads an in-map row and is not `in`. The
+// forward (corners_px) weighs the rows; the backward (csrc/msda_bwd.cu)
+// takes their products with the output's gradient.
 template <typename T, int V>
-__device__ __forceinline__ void corners_px(const T* __restrict__ level, int H, int W,
-                                           int stride, float ix, float iy, float a,
-                                           typename Vec<T, V>::Raw (&r)[4], float (&w)[4]) {
+__device__ __forceinline__ void corner_rows_px(const T* __restrict__ level, int H, int W,
+                                               int stride, float x0, float y0,
+                                               typename Vec<T, V>::Raw (&r)[4],
+                                               bool (&in)[4]) {
   const float Wf = (float)W;
   const float Hf = (float)H;
-  const float x0 = floorf(ix);
-  const float y0 = floorf(iy);
   const float x1 = x0 + 1.f;
   const float y1 = y0 + 1.f;
   // tested in float: NaN fails every comparison
@@ -150,25 +153,42 @@ __device__ __forceinline__ void corners_px(const T* __restrict__ level, int H, i
   const bool vx1 = x1 >= 0.f && x1 <= Wf - 1.f;
   const bool vy0 = y0 >= 0.f && y0 <= Hf - 1.f;
   const bool vy1 = y1 >= 0.f && y1 <= Hf - 1.f;
+  in[0] = vx0 && vy0;
+  in[1] = vx0 && vy1;
+  in[2] = vx1 && vy0;
+  in[3] = vx1 && vy1;
   // clamped in float before the conversion (fmaxf takes 0 over a NaN), so
   // every corner address lies in the map
   const int xi0 = (int)fminf(fmaxf(x0, 0.f), Wf - 1.f);
   const int xi1 = (int)fminf(fmaxf(x1, 0.f), Wf - 1.f);
   const int yi0 = (int)fminf(fmaxf(y0, 0.f), Hf - 1.f);
   const int yi1 = (int)fminf(fmaxf(y1, 0.f), Hf - 1.f);
-  const float wx0 = x1 - ix;
-  const float wx1 = ix - x0;
-  const float wy0 = y1 - iy;
-  const float wy1 = iy - y0;
-  w[0] = (vx0 && vy0) ? a * (wx0 * wy0) : 0.f;
-  w[1] = (vx0 && vy1) ? a * (wx0 * wy1) : 0.f;
-  w[2] = (vx1 && vy0) ? a * (wx1 * wy0) : 0.f;
-  w[3] = (vx1 && vy1) ? a * (wx1 * wy1) : 0.f;
   const unsigned int s = (unsigned int)stride;
   r[0] = load<T, V>(level + (size_t)(unsigned int)(yi0 * W + xi0) * s);
   r[1] = load<T, V>(level + (size_t)(unsigned int)(yi1 * W + xi0) * s);
   r[2] = load<T, V>(level + (size_t)(unsigned int)(yi0 * W + xi1) * s);
   r[3] = load<T, V>(level + (size_t)(unsigned int)(yi1 * W + xi1) * s);
+}
+
+// One point's four corners at pixel coordinates (ix, iy) for V channels of
+// one head: loads their rows into r (corner_rows_px) and their weights
+// a * hat * hat into w, exactly 0.f for a corner that is not in the map.
+template <typename T, int V>
+__device__ __forceinline__ void corners_px(const T* __restrict__ level, int H, int W,
+                                           int stride, float ix, float iy, float a,
+                                           typename Vec<T, V>::Raw (&r)[4], float (&w)[4]) {
+  const float x0 = floorf(ix);
+  const float y0 = floorf(iy);
+  bool in[4];
+  corner_rows_px<T, V>(level, H, W, stride, x0, y0, r, in);
+  const float wx0 = (x0 + 1.f) - ix;
+  const float wx1 = ix - x0;
+  const float wy0 = (y0 + 1.f) - iy;
+  const float wy1 = iy - y0;
+  w[0] = in[0] ? a * (wx0 * wy0) : 0.f;
+  w[1] = in[1] ? a * (wx0 * wy1) : 0.f;
+  w[2] = in[2] ? a * (wx1 * wy0) : 0.f;
+  w[3] = in[3] ? a * (wx1 * wy1) : 0.f;
 }
 
 // Samples one point of one level at pixel coordinates (ix, iy) and adds

@@ -18,13 +18,27 @@ The model calls it as the custom op ``torch.ops.detrpose_tpu_torch.msda_fwd``,
 so that ``torch.export`` keeps the kernel call in the graph (it cannot trace
 into a ``ctypes`` call) and an exported program launches the kernel when it
 runs. The op's gradient mirrors the JAX ``custom_vjp``: the forward is the
-kernel, the backward re-derives gradients by autograd through the plain
-version (as ``_fast_bwd`` does through the XLA path), inside the profiler
-range ``BACKWARD_RANGE`` so a trace can give its share of a training step.
-Under grad mode (a backward that is itself differentiated) that backward is
-recorded, so second derivatives flow as through JAX's gather path, and it
-computes only the gradients the running backward uses.
-There is no backward kernel, because the TPU kernel has none.
+kernel, and the backward, inside the profiler range ``BACKWARD_RANGE`` so a
+trace can give its share of a step, takes one of two paths that
+``backward_path`` picks from what it observes:
+
+- the kernel ``csrc/msda_bwd.cu`` (``msda_backward``), which writes the
+  location and weight gradients and no value gradient, for a backward on
+  CUDA tensors that is not itself recorded (grad mode off) and wants no
+  value gradient: energy refinement's gradient in serving;
+- otherwise the plain path: autograd through the plain version (as
+  ``_fast_bwd`` does through the XLA path). Training of every model wants
+  the value's gradient, energy training records the backward
+  (``create_graph``) so that second derivatives flow as through JAX's
+  gather path, and the CPU has no kernel. A recorded backward computes
+  only the gradients the running backward uses.
+
+The TPU kernel has no backward, so the backward kernel replaces none.
+``msda_backward.launches`` counts its launches and ``msda_backward.plain``
+the backwards on CUDA tensors that took the plain path. The wrapper takes
+CUDA tensors alone; ``msda_backward_plain``, its plain twin with the
+closed-form gradients written out, is the reference the tests hold the
+kernel's formulas to, and no path of the program runs it.
 
 The module also holds what the other wrappers share: ``bind`` and the level
 table of kernels #1 and #2, and the per-point kernels #3–#5's table of level
@@ -39,7 +53,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 
 from ...utils.measure import span
-from ..ms_deform_attn import SpatialShapes, flatten_levels, ms_deform_attn_core
+from ..ms_deform_attn import SpatialShapes, corner_rows, flatten_levels, ms_deform_attn_core
 from .build import load_library
 
 MAX_LEVELS = 4               # MSDA_MAX_LEVELS in the sources
@@ -311,38 +325,194 @@ class MSDAForward:
 
     @staticmethod
     def _check(value, spatial_shapes, loc, aw):
-        if value.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"msda_forward: value must be float32 or bfloat16, got {value.dtype}")
-        if loc.dtype != torch.float32 or aw.dtype != torch.float32:
-            raise TypeError("msda_forward: locations and weights must be float32, "
-                            f"got {loc.dtype} and {aw.dtype}")
-        for name, t in (("value", value), ("locations", loc), ("weights", aw)):
-            if t.device != value.device:
-                raise ValueError(f"msda_forward: {name} on {t.device}, value on {value.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"msda_forward: {name} must be contiguous")
-        if value.dim() != 3 or loc.dim() != 6 or loc.shape[-1] != 2:
-            raise ValueError(f"msda_forward: bad shapes value {tuple(value.shape)}, "
-                             f"locations {tuple(loc.shape)}")
-        B, Lq, nH, nL, nP, _ = loc.shape
-        if tuple(aw.shape) != (B, Lq, nH, nL, nP):
-            raise ValueError(f"msda_forward: weights {tuple(aw.shape)} do not match "
-                             f"locations {tuple(loc.shape)}")
-        if len(spatial_shapes) != nL or not 1 <= nL <= MAX_LEVELS:
-            raise ValueError(f"msda_forward: {len(spatial_shapes)} spatial shapes for "
-                             f"{nL} levels (at most {MAX_LEVELS})")
-        S = sum(int(h) * int(w) for h, w in spatial_shapes)
+        check_inputs("msda_forward", value, spatial_shapes, loc, aw)
+        B, Lq, nH = loc.shape[:3]
         C = value.shape[2]
-        if value.shape[0] != B or value.shape[1] != S or C % nH:
-            raise ValueError(f"msda_forward: value {tuple(value.shape)} does not match "
-                             f"B={B}, S={S}, nH={nH}")
         if gather_plan(nH, C // nH, value.element_size(), value.data_ptr(),
                        B * Lq).blocks > MAX_BLOCKS:
             raise ValueError(f"msda_forward: {B * Lq} queries of {C} channels need too "
                              "large a grid")
 
 
+def check_inputs(name: str, value, spatial_shapes, loc, aw) -> None:
+    """Checks of the op's inputs for a kernel launch; raises on what kernels
+    #1 and its backward do not take."""
+    if value.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: value must be float32 or bfloat16, got {value.dtype}")
+    if loc.dtype != torch.float32 or aw.dtype != torch.float32:
+        raise TypeError(f"{name}: locations and weights must be float32, "
+                        f"got {loc.dtype} and {aw.dtype}")
+    for what, t in (("value", value), ("locations", loc), ("weights", aw)):
+        if t.device != value.device:
+            raise ValueError(f"{name}: {what} on {t.device}, value on {value.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if value.dim() != 3 or loc.dim() != 6 or loc.shape[-1] != 2:
+        raise ValueError(f"{name}: bad shapes value {tuple(value.shape)}, "
+                         f"locations {tuple(loc.shape)}")
+    B, Lq, nH, nL, nP, _ = loc.shape
+    if tuple(aw.shape) != (B, Lq, nH, nL, nP):
+        raise ValueError(f"{name}: weights {tuple(aw.shape)} do not match "
+                         f"locations {tuple(loc.shape)}")
+    if len(spatial_shapes) != nL or not 1 <= nL <= MAX_LEVELS:
+        raise ValueError(f"{name}: {len(spatial_shapes)} spatial shapes for "
+                         f"{nL} levels (at most {MAX_LEVELS})")
+    S = sum(int(h) * int(w) for h, w in spatial_shapes)
+    C = value.shape[2]
+    if value.shape[0] != B or value.shape[1] != S or C % nH:
+        raise ValueError(f"{name}: value {tuple(value.shape)} does not match "
+                         f"B={B}, S={S}, nH={nH}")
+
+
 msda_forward = MSDAForward()
+
+
+# ---- the op's backward for the locations and weights (csrc/msda_bwd.cu)
+
+class BackwardPlan(NamedTuple):
+    """A launch of the backward kernel (csrc/msda_bwd.cu)."""
+    vec: int       # channels each thread loads at once, 16, 8, 4 or 2 bytes
+    lanes: int     # threads per (query, head): a power of two, at most 32
+    chunks: int    # the channel vectors each thread takes, one after another
+    blocks: int    # of BLOCK_THREADS threads
+
+
+def backward_plan(dh: int, itemsize: int, ptrs: Sequence[int], heads: int) -> BackwardPlan:
+    """The launch for ``heads`` (query, head) pairs of ``dh`` channels of
+    ``itemsize`` bytes, from maps at the addresses ``ptrs`` (the value map
+    and the output's gradient): the head's channel vectors on a power of two
+    of lanes, at most a warp, so that a head's lanes add up their sums by
+    shuffles within one warp."""
+    vec = load_width(dh, itemsize, ptrs)
+    need = dh // vec
+    lanes = min(32, 1 << (need - 1).bit_length())
+    return BackwardPlan(vec, lanes, -(-need // lanes), -(-heads * lanes // BLOCK_THREADS))
+
+
+def msda_backward_plain(value: torch.Tensor, spatial_shapes: SpatialShapes,
+                        sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                        grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's plain twin: the gradients of
+    ``ms_deform_attn_core`` for its locations and weights at the output's
+    gradient ``grad_out``, by their closed forms (csrc/msda_bwd.cu's note)
+    and not by autograd; the floors held constant, each corner's terms
+    multiplied by whether it lies in the map. Computed in float32, or
+    float64 where an input is; returned in the locations' and weights'
+    dtypes."""
+    B, Lq, nH, nL, nP, _ = sampling_locations.shape
+    C = value.shape[-1]
+    dh = C // nH
+    acc = torch.promote_types(torch.promote_types(value.dtype, sampling_locations.dtype),
+                              torch.float32)
+    loc = sampling_locations.to(acc)
+    aw = attention_weights.to(acc)
+    # (B, Lq, C) -> (B*nH, Lq*nP, dh): each query's gradient at its points
+    go = grad_out.to(acc).reshape(B, Lq, nH, 1, dh).permute(0, 2, 1, 3, 4)
+    go = go.expand(B, nH, Lq, nP, dh).reshape(B * nH, Lq * nP, dh)
+    grads_loc, grads_aw = [], []
+    start = 0
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        v = value[:, start:start + H * W].reshape(B, H * W, nH, dh)
+        v = v.permute(0, 2, 1, 3).reshape(B * nH, H * W, dh)
+        start += H * W
+        lx, ly, a = (t.permute(0, 2, 1, 3).reshape(B * nH, Lq * nP)
+                     for t in (loc[:, :, :, lvl, :, 0], loc[:, :, :, lvl, :, 1],
+                               aw[:, :, :, lvl]))
+        ix = lx * W - 0.5
+        iy = ly * H - 0.5
+        x0 = torch.floor(ix)
+        y0 = torch.floor(iy)
+        x1 = x0 + 1.0
+        y1 = y0 + 1.0
+        m = []   # per corner: sum over channels of grad_out * row, * whether in the map
+        for xc, yc in ((x0, y0), (x0, y1), (x1, y0), (x1, y1)):
+            g, valid = corner_rows(v, H, W, xc, yc)
+            m.append((g.to(acc) * go).sum(-1) * valid)
+        fx0, fx1, fy0, fy1 = x1 - ix, ix - x0, y1 - iy, iy - y0
+        ga = fx0 * fy0 * m[0] + fx0 * fy1 * m[1] + fx1 * fy0 * m[2] + fx1 * fy1 * m[3]
+        gx = W * (a * (fy0 * (m[2] - m[0]) + fy1 * (m[3] - m[1])))
+        gy = H * (a * (fx0 * (m[1] - m[0]) + fx1 * (m[3] - m[2])))
+        grads_loc.append(torch.stack([gx, gy], -1).reshape(B, nH, Lq, nP, 2))
+        grads_aw.append(ga.reshape(B, nH, Lq, nP))
+    grad_loc = torch.stack(grads_loc, 3).permute(0, 2, 1, 3, 4, 5)
+    grad_aw = torch.stack(grads_aw, 3).permute(0, 2, 1, 3, 4)
+    return (grad_loc.to(sampling_locations.dtype).contiguous(),
+            grad_aw.to(attention_weights.dtype).contiguous())
+
+
+def _load_backward():
+    return bind("msda_bwd.cu", ("msda_bwd_f32", "msda_bwd_bf16"),
+                [ctypes.c_void_p] * 6 + [_Levels] + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+
+
+class MSDABackward:
+    """The op's backward for the locations and weights; ``launches`` counts
+    CUDA kernel launches, ``plain`` the op's backwards on CUDA tensors that
+    took the plain path (``_backward``)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.plain = 0
+
+    def build(self) -> str:
+        """Build and load the kernel now; returns nvcc's report ("" if cached)."""
+        return _load_backward()[1]
+
+    def __call__(self, value: torch.Tensor, spatial_shapes: SpatialShapes,
+                 sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                 grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """value (B, S, nH*dh); locations (B, Lq, nH, nL, nP, 2) float32;
+        weights (B, Lq, nH, nL, nP) float32; grad_out (B, Lq, nH*dh) in
+        value's dtype -> (the locations' gradient, the weights'), float32."""
+        dev = value.device
+        if dev.type != "cuda":
+            raise ValueError(f"msda_backward: unsupported device {dev}")
+        check_inputs("msda_backward", value, spatial_shapes, sampling_locations,
+                     attention_weights)
+        B, Lq, nH, nL, nP, _ = sampling_locations.shape
+        S, C = value.shape[1], value.shape[2]
+        if grad_out.dtype != value.dtype or tuple(grad_out.shape) != (B, Lq, C):
+            raise ValueError(f"msda_backward: grad_out must be {value.dtype} {(B, Lq, C)}, "
+                             f"got {grad_out.dtype} {tuple(grad_out.shape)}")
+        if grad_out.device != dev or not grad_out.is_contiguous():
+            raise ValueError(f"msda_backward: grad_out must be contiguous on {dev}")
+        plan = backward_plan(C // nH, value.element_size(),
+                             (value.data_ptr(), grad_out.data_ptr()), B * Lq * nH)
+        if plan.blocks > MAX_BLOCKS:
+            raise ValueError(f"msda_backward: {B * Lq} queries of {C} channels need too "
+                             "large a grid")
+        grad_loc = torch.empty(sampling_locations.shape, dtype=torch.float32, device=dev)
+        grad_aw = torch.empty(attention_weights.shape, dtype=torch.float32, device=dev)
+        if grad_aw.numel() == 0:
+            return grad_loc, grad_aw
+        lib, _ = _load_backward()
+        fn = lib.msda_bwd_bf16 if value.dtype == torch.bfloat16 else lib.msda_bwd_f32
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(value.data_ptr(), sampling_locations.data_ptr(),
+                     attention_weights.data_ptr(), grad_out.data_ptr(), grad_loc.data_ptr(),
+                     grad_aw.data_ptr(), level_table(spatial_shapes), B, S, Lq, nH, nL, nP,
+                     C // nH, plan.vec, plan.lanes, plan.blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"msda_bwd kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return grad_loc, grad_aw
+
+
+msda_backward = MSDABackward()
+
+
+def backward_path(device_type: str, grad_enabled: bool,
+                  needs_input_grad: Sequence[bool]) -> str:
+    """How the op's backward runs, from what it observes: "kernel"
+    (``msda_backward``) on a CUDA device, with grad mode off (the backward is
+    not itself recorded), for the locations' or the weights' gradient and
+    not the value's (``needs_input_grad``: value, locations, weights);
+    "plain" (autograd through ``ms_deform_attn_core``) otherwise."""
+    value, loc, aw = needs_input_grad
+    if device_type == "cuda" and not grad_enabled and not value and (loc or aw):
+        return "kernel"
+    return "plain"
 
 
 @torch.library.custom_op(
@@ -370,11 +540,15 @@ def _backward(ctx, grad_out):
     # All of the backward's device work is launched inside BACKWARD_RANGE,
     # on the thread autograd runs it on (its own device thread on the card):
     # the benchmark's backward roofline (h100_bench/bounds_msda_bwd.py) reads
-    # the work of one such range. A hand-written backward kernel that takes
-    # this place opens the same range around its launches, so that the
-    # roofline reads the same work whatever implements it.
+    # the work of one such range, the kernel's or the plain path's.
     value, loc, aw = ctx.saved_tensors
     need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
+    if backward_path(value.device.type, torch.is_grad_enabled(), need) == "kernel":
+        with span(BACKWARD_RANGE):
+            gl, ga = msda_backward(value, pairs(ctx.level_hw), loc, aw, grad_out.contiguous())
+        return None, None, gl if need[1] else None, ga if need[2] else None
+    if value.is_cuda:
+        msda_backward.plain += 1
     if torch.is_grad_enabled():
         # a backward that is itself differentiated (create_graph=True): the
         # plain version's gradient on the saved inputs, recorded, so that a

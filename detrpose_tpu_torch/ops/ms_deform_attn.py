@@ -14,7 +14,8 @@ the twin that kernel is held to.
 ``bilinear_sample`` is the corner arithmetic; kernel #2's plain version
 (``ops/cuda/msda_perquery.py``) uses it on its own packed layout, and the
 plain versions of kernels #3–#5 use ``bilinear_sample_px``, the same taps at
-pixel coordinates.
+pixel coordinates. ``corner_rows`` is its fetch of one corner, which the
+plain twin of kernel #1's backward (``ops/cuda/msda.py``) shares.
 
 The value is taken in the flattened channel-minor layout the transformer
 builds anyway: ``value`` (B, S, nH*dh) with S = sum of H_l*W_l, levels in
@@ -57,7 +58,6 @@ def bilinear_sample_px(v: torch.Tensor, H: int, W: int, ix: torch.Tensor,
     """``bilinear_sample`` at pixel coordinates ``ix = x*W - 0.5``,
     ``iy = y*H - 0.5``, (N, P) float32 -> (N, P, dh) float32 (float64 from
     float64 coordinates)."""
-    dh = v.shape[-1]
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
     x1 = x0 + 1.0
@@ -67,14 +67,22 @@ def bilinear_sample_px(v: torch.Tensor, H: int, W: int, ix: torch.Tensor,
                       (x0, y1, (x1 - ix) * (iy - y0)),
                       (x1, y0, (ix - x0) * (y1 - iy)),
                       (x1, y1, (ix - x0) * (iy - y0))):
-        valid = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)
-        # a NaN coordinate reads row 0 (its weight keeps it NaN, as in JAX)
-        xi = xc.nan_to_num(0.0).clamp(0, W - 1).long()
-        yi = yc.nan_to_num(0.0).clamp(0, H - 1).long()
-        idx = (yi * W + xi).unsqueeze(-1).expand(-1, -1, dh)
-        g = torch.gather(v, 1, idx).to(ix.dtype)                  # (N, P, dh)
-        sampled = sampled + g * (w * valid)[..., None]
+        g, valid = corner_rows(v, H, W, xc, yc)
+        sampled = sampled + g.to(ix.dtype) * (w * valid)[..., None]
     return sampled
+
+
+def corner_rows(v: torch.Tensor, H: int, W: int, xc: torch.Tensor,
+                yc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of ``v`` (N, H*W, dh) at the corners ``(xc, yc)`` (N, P),
+    whole pixels, -> ((N, P, dh) in ``v``'s dtype, (N, P) bool: whether
+    each corner lies in the map). A corner off the map reads a row clamped
+    into it, a NaN coordinate row 0 (its weight keeps it NaN, as in JAX)."""
+    valid = (xc >= 0) & (xc <= W - 1) & (yc >= 0) & (yc <= H - 1)
+    xi = xc.nan_to_num(0.0).clamp(0, W - 1).long()
+    yi = yc.nan_to_num(0.0).clamp(0, H - 1).long()
+    idx = (yi * W + xi).unsqueeze(-1).expand(-1, -1, v.shape[-1])
+    return torch.gather(v, 1, idx), valid
 
 
 def ms_deform_attn_core(

@@ -22,7 +22,8 @@ import torch
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from detrpose_tpu_torch.models.decoder import MSDeformAttn
-from detrpose_tpu_torch.ops.cuda.msda import ms_deform_attn_fast_flat, msda_forward
+from detrpose_tpu_torch.ops.cuda.msda import (ms_deform_attn_fast_flat, msda_backward,
+                                              msda_forward)
 from detrpose_tpu_torch.ops.cuda.msda_perquery import (msda_perquery, msda_perquery_plain,
                                                        pack_points, pack_value)
 from detrpose_tpu_torch.ops.cuda.msda import SMEM_OPTIN, TPOSE_BUDGET
@@ -200,6 +201,161 @@ def test_kernels_nan_and_huge_points_are_zero(cuda, dtype):
     vflat, locp, awp = _packed(value, loc, aw)
     assert msda_forward(value, SHAPES, loc, aw).abs().max().item() == 0.0
     assert msda_perquery(vflat, SHAPES, locp, awp).abs().max().item() == 0.0
+
+
+# ---- kernel #1's backward for the locations and weights (csrc/msda_bwd.cu)
+# against the op's plain path, autograd through the plain version: float32
+# gradients of the same values in another order, so within 1e-5 of max|ref|
+# whatever the value type, and NaN where the plain version's are
+
+L_EVAL_SHAPES = [(80, 80), (40, 40), (20, 20)]
+
+
+def _grad_out(value, Lq, seed):
+    g = torch.Generator(value.device).manual_seed(seed)
+    return torch.randn(value.shape[0], Lq, value.shape[2], device=value.device,
+                       generator=g).to(value.dtype)
+
+
+def _plain_backward(value, shapes, loc, aw, grad_out):
+    ins = [loc.clone().requires_grad_(), aw.clone().requires_grad_()]
+    with torch.enable_grad():
+        out = ms_deform_attn_core(value, shapes, ins[0], ins[1])
+        return torch.autograd.grad(out, ins, grad_out)
+
+
+def _assert_backward_matches_plain(value, shapes, loc, aw, grad_out, rel=1e-5):
+    before = msda_backward.launches
+    got = msda_backward(value, shapes, loc, aw, grad_out)
+    assert msda_backward.launches == before + 1
+    want = _plain_backward(value, shapes, loc, aw, grad_out)
+    for name, a, b in zip(("locations", "weights"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        err = (a - b).nan_to_num().abs().max().item()
+        assert err <= rel * b.nan_to_num().abs().max().item(), (name, err)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain_at_l_eval_shapes(cuda, dtype):
+    # the energy cell's launch: bs 32, 60 queries x 18 tokens, L's levels
+    value, loc, aw = _inputs(cuda, dtype, B=32, Lq=1080, shapes=L_EVAL_SHAPES, seed=30)
+    want = _assert_backward_matches_plain(value, L_EVAL_SHAPES, loc, aw,
+                                          _grad_out(value, 1080, 0))
+    assert all(w.abs().max().item() > 0 for w in want)
+
+
+# the forward's cases off the 16-byte path, and a head wider than a warp of
+# lanes: 96 channels on a map 1 element into its buffer take 1-element
+# loads, 96 lanes, so 3 chunks of 32
+BACKWARD_OFF_PATH = dict(OFF_PATH, chunks=dict(B=1, Lq=37, nH=2, dh=96, nP=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BACKWARD_OFF_PATH))
+def test_backward_kernel_matches_plain_off_the_16_byte_path(cuda, dtype, case):
+    kw = BACKWARD_OFF_PATH[case]
+    value, loc, aw = _inputs(cuda, dtype, seed=32, **kw)
+    shapes = kw.get("shapes", SHAPES)
+    if case in ("offset", "chunks"):
+        value = _shifted(value, 2 if case == "offset" else 1)
+        assert value.data_ptr() % 16
+    _assert_backward_matches_plain(value, shapes, loc, aw, _grad_out(value, loc.shape[1], 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_nan_and_huge_points(cuda, dtype):
+    # one or both coordinates of some points NaN, 1e30 or -1e30: the
+    # kernel's gradients are NaN where the plain version's are, equal
+    # elsewhere
+    value, loc, aw = _inputs(cuda, dtype, lo=0.0, hi=1.0, seed=33)
+    rng = np.random.default_rng(34)
+    bad = rng.choice(np.array([np.nan, 1e30, -1e30], np.float32), loc.shape)
+    which = rng.integers(0, 4, loc.shape[:-1])     # 3: the point stays
+    hit = np.stack([(which == 0) | (which == 2), (which == 1) | (which == 2)], axis=-1)
+    loc = torch.where(torch.from_numpy(hit).to(cuda), torch.from_numpy(bad).to(cuda), loc)
+    want = _assert_backward_matches_plain(value, SHAPES, loc, aw, _grad_out(value, 135, 2))
+    assert torch.isnan(want[0]).any() and torch.isnan(want[1]).any()
+
+
+@pytest.mark.gpu
+def test_backward_counters(cuda):
+    # the op's backward launches the kernel for the locations' and weights'
+    # gradients alone, once a backward; a value that needs its gradient, or
+    # a backward that is itself recorded, takes the plain path, counted
+    value, loc, aw = _inputs(cuda, torch.bfloat16, B=1, Lq=16, seed=35)
+    g = _grad_out(value, 16, 3)
+
+    def grads(wrt="la", create_graph=False):
+        ins = [value.clone().requires_grad_("v" in wrt), loc.clone().requires_grad_("l" in wrt),
+               aw.clone().requires_grad_("a" in wrt)]
+        with torch.enable_grad():
+            out = ms_deform_attn_fast_flat(ins[0], SHAPES, ins[1], ins[2])
+            return torch.autograd.grad(out, [t for t in ins if t.requires_grad], g,
+                                       create_graph=create_graph)
+
+    want = _plain_backward(value, SHAPES, loc, aw, g)
+    for wrt, launched, picked in (("la", 1, want), ("la", 1, want), ("l", 1, want[:1]),
+                                  ("a", 1, want[1:])):
+        before = (msda_backward.launches, msda_backward.plain)
+        got = grads(wrt)
+        assert (msda_backward.launches, msda_backward.plain) == (before[0] + launched,
+                                                                 before[1]), wrt
+        for a, b in zip(got, picked):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    for wrt, create_graph in (("vla", False), ("la", True)):
+        before = (msda_backward.launches, msda_backward.plain)
+        got = grads(wrt, create_graph)
+        assert (msda_backward.launches, msda_backward.plain) == (before[0], before[1] + 1)
+        for a, b in zip(got[-2:], want):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_n_energy_pipeline_matches_the_plain_backward(cuda, exact_f32, monkeypatch):
+    # N with gradient energy refinement served through build_pipeline in
+    # float32: each of its 3 refinement steps takes the kernel; the same
+    # model with the path choice forced to the plain path gives the same
+    # logits and keypoints within 1e-4, the refinement's step within 1e-3 of
+    # its size, and the served scores within 1e-4
+    from detrpose_tpu_torch.ops.cuda import msda as msda_module
+    from detrpose_tpu_torch.tools.infer import build_pipeline
+
+    run = build_pipeline("n", res=320, dtype=torch.float32, device=cuda,
+                         use_energy_refinement=True, grad_energy=True)
+    x = torch.rand(2, 3, 320, 320, generator=torch.Generator().manual_seed(36)).to(cuda)
+    frames = np.random.default_rng(36).integers(0, 256, (2, 240, 320, 3), dtype=np.uint8)
+    wh = np.array([[320, 240]] * 2, np.float32)
+
+    def served():
+        entered = []
+        hook = run.model.transformer.lqe_embed[-1].register_forward_hook(
+            lambda m, a, out: entered.append(a[1].float()))
+        before = (msda_backward.launches, msda_backward.plain)
+        try:
+            with torch.no_grad():
+                out = run.model(x)
+                scores = run(frames, wh)[0]
+        finally:
+            hook.remove()
+        counts = (msda_backward.launches - before[0], msda_backward.plain - before[1])
+        step = out["pred_keypoints"].float().reshape(entered[0].shape) - entered[0]
+        return out, step, scores, counts
+
+    out, step, scores, counts = served()
+    assert counts == (6, 0)
+    monkeypatch.setattr(msda_module, "backward_path", lambda *args: "plain")
+    want, want_step, want_scores, counts = served()
+    assert counts == (0, 6)
+    for k in ("pred_logits", "pred_keypoints"):
+        assert (out[k] - want[k]).abs().max().item() < 1e-4, k
+    assert want_step.abs().max().item() > 0
+    assert ((step - want_step).norm() / want_step.norm()).item() < 1e-3
+    assert (scores - want_scores).abs().max().item() < 1e-4
 
 
 # ---- kernels #3–#5, the per-point variants and ablations: both sides take
