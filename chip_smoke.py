@@ -75,8 +75,8 @@ Phases (any failure exits non-zero before the last line is printed):
      Before each main path every launch counter is set to 0, and after it
      each kernel the path runs must have launched;
   8. time, with CUDA events after a warm-up: the L forward + postprocess at
-     bs 32 in deploy and train form and as the exported program, its traced
-     split, one bs-1 request, and each kernel (each mode of #5) against its
+     bs 32 in deploy and train form and as the exported program, one bs-1
+     request, and each kernel (each mode of #5) against its
      plain version at the L shapes, beside the least time the card could
      take for its own bytes and operations (bound) and the kernels' own
      device time (torch.profiler), #3 also at tile 512, the L2 rate of
@@ -174,14 +174,11 @@ Phases (any failure exits non-zero before the last line is printed):
      as initialised, then its forward through kernel #1; (b)
      examples/tutorial_torch.py at L, 640 px, on the card in its own
      process: its overlay written, its first and steady latencies, 12
-     launches of kernel #1 in its 2 calls; (c) bench_torch.py at L, bs 32,
-     640 px, bf16, its JSON line printed, failing on measurement_invalid, on
-     a null MFU on a card of known peak, or unless kernel #1 launched 6
-     times a forward call; (d) tools/component_slope.py's stage split at L,
-     bs 32, 640 px, bf16, kernel #1 0, 0, 6 and 6 launches a call of its
-     stages; (e) tools/overfit.py, a short run of N at 160 px: its loss
-     must fall, its losses and the evaluator's 10 stats of each stream be
-     finite, kernel #1 3 launches a step and an evaluation batch;
+     launches of kernel #1 in its 2 calls; (e) tools/overfit.py, a short
+     run of N at 160 px: its loss must fall, its losses and the evaluator's
+     10 stats of each stream be finite, kernel #1 3 launches a step and an
+     evaluation batch. Serving's throughput and its split by stage are
+     h100_bench/'s, read from the program's spans;
  13. main path 9, where training starts: (a) N and L built by build_model on
      the card, every Linear and conv weight (the packed attention
      in-projection too) held to flax's lecun-normal: within its truncation
@@ -233,7 +230,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 from PIL import Image, ImageDraw
 
-import bench_torch
 from h100_bench.bounds_msda_bwd import OPS_PER_TAP_CHANNEL
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.data.evaluator import KeypointEvaluator
@@ -261,7 +257,6 @@ from detrpose_tpu_torch.parallel.mesh import shard_batch
 from detrpose_tpu_torch.parallel.train_step import PHASES, make_train_step
 from detrpose_tpu_torch.tools import benchmark, msda_ablate as ablate_tool, msda_v2, pallas_bench
 from detrpose_tpu_torch.tools.benchmark import launch_counts, synthetic_train_batch
-from detrpose_tpu_torch.tools.component_slope import ALONE, DELTAS, STAGES, component_slope
 from detrpose_tpu_torch.tools.export import build_serve, export_model, load_exported
 from detrpose_tpu_torch.tools.infer import build_pipeline, detections
 from detrpose_tpu_torch.tools.infer import main as infer_main
@@ -551,36 +546,6 @@ def tpose_smem(levels, dh, groups):
     """Kernel #4's shared memory a block at ``groups`` channel groups: the
     budget that makes its plan take that many."""
     return TPOSE_BARRIER + sum(-(-(W * (dh // groups) * H * 2) // 16) * 16 for H, W in levels)
-
-
-def device_time_split(fn, wall_ms):
-    """One traced call of ``fn``: device time by kernel family, summed from
-    torch.profiler's per-kernel self device times (one stream, so the sum is
-    the busy time), and the idle share against ``wall_ms``."""
-    kernels = kernel_times(fn)
-    if not kernels:
-        print("[8] torch.profiler saw no device time; no split")
-        return
-    families = {"msda": ("msda_fwd", "msda_perquery"),
-                "conv": ("conv", "fprop", "implicit"),
-                "layout": ("nchwtonhwc", "nhwctonchw"),
-                "matmul": ("gemm", "nvjet", "cutlass", "cublas"),
-                "batch_norm": ("batch_norm",)}
-    split = {}
-    for name, ms, _ in kernels:
-        fam = next((f for f, keys in families.items()
-                    if any(k in name.lower() for k in keys)), "other")
-        split[fam] = split.get(fam, 0.0) + ms
-    busy = sum(split.values())
-    if busy > wall_ms:
-        fail(f"traced forward: the kernels' device time {busy:.3f} ms exceeds the call's "
-             f"{wall_ms:.3f} ms between CUDA events: kernels miscounted")
-    print(f"[8] traced forward: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-          f"(idle share {1 - busy / wall_ms:.3f}); by family: " + ", ".join(
-              f"{f} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
-              for f, ms in sorted(split.items(), key=lambda kv: -kv[1])))
-    for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:8]:
-        print(f"[8]   {ms:8.3f} ms  x{count:<4d} {name[:90]}")
 
 
 def perturb_constant_leaves(model, g):
@@ -2379,8 +2344,7 @@ def variants_path(card, gen, g):
                    "seconds": seconds}
 
 
-# ---- main path 8: weights from elsewhere, the tutorial, the headline bench,
-# the stage split, the overfit run ------------------------------------------
+# ---- main path 8: weights from elsewhere, the tutorial, the overfit run ---
 # the short overfit run of phase 12 (e): N at 160 px on the drawn set, its
 # loss sampled 4 times; sized to about a minute on an H100
 OVERFIT_SMOKE = dict(steps=200, n_images=32, stage_epochs=1, sample_every=50, holdout=16)
@@ -2461,59 +2425,6 @@ def tutorial_path(card, root):
     return counts, ms
 
 
-def bench_path(card):
-    """Phase 12 (c): bench_torch.py at L, bs 32, 640 px, bf16, in this
-    process; returns its JSON line and the launches."""
-    for k, v in (("BENCH_MODEL", "l"), ("BENCH_BATCH", "32"), ("BENCH_RES", "640"),
-                 ("BENCH_ITERS", "30")):
-        os.environ[k] = v
-    zero_launch_counts()
-    captured = io.StringIO()
-    with contextlib.redirect_stdout(captured):
-        result = bench_torch.main()
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    line = captured.getvalue().strip().splitlines()[-1]
-    if json.loads(line) != result:
-        fail("bench_torch.py: its printed line is not its result")
-    print(f"[12] (c) bench_torch.py: {line}")
-    if result["measurement_invalid"]:
-        fail("bench_torch.py: measurement_invalid")
-    if result["device_kind"] in bench_torch.DEVICE_PEAK_TFLOPS and result["mfu"] is None:
-        fail(f"bench_torch.py: no MFU on {result['device_kind']}")
-    expect_launches(f"bench_torch.py's {result['forward_calls']} forward calls", counts,
-                    L_LAYERS * result["forward_calls"])
-    print(f"[12] (c) bench_torch.py: {result['value']} images/s, {result['ms_per_batch']} "
-          f"ms/batch, MFU {result['mfu']} (conv + matmul + attention FLOPs); kernel #1 "
-          f"{counts['msda_fwd']} launches over {result['forward_calls']} forward calls; "
-          f"on {card}")
-    return counts, result
-
-
-def stage_split_path(card):
-    """Phase 12 (d): tools/component_slope.py at L, bs 32, 640 px, bf16."""
-    zero_launch_counts()
-    split = component_slope("l", 32, 640, iters=10)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    per_call = {name: split["launches"][name]["msda_fwd"] for name in STAGES}
-    want = dict(zip(STAGES, (0, 0, L_LAYERS, L_LAYERS)))
-    if per_call != want or any(v for name in STAGES for k, v in split["launches"][name].items()
-                               if k != "msda_fwd"):
-        fail(f"the stage split's launches a call {split['launches']}, expected kernel #1 "
-             f"{want}")
-    full = split["full + postprocess"]
-    print(f"[12] (d) stage split, L bs32 640 bf16 (CUDA events, the fastest of 3 rounds of 10 "
-          f"calls a stage): " + ", ".join(
-        f"{name} {split[name]:.3f} ms" for name in STAGES + tuple(DELTAS) + (ALONE,))
-        + "; shares of "
-        "full + postprocess: " + ", ".join(
-            f"{name.split(' ')[0]} {100 * split[name] / full:.1f}%"
-            for name in ("backbone",) + tuple(DELTAS)) + f"; kernel #1 a call {per_call}; "
-        f"on {card}")
-    return counts, split
-
-
 def overfit_path(card):
     """Phase 12 (e): a short overfit run of N at 160 px on the card."""
     zero_launch_counts()
@@ -2536,7 +2447,7 @@ def overfit_path(card):
     return counts, r
 
 
-def weights_bench_path(card):
+def weights_programs_path(card):
     """Main path 8 (phase 12): returns the launches and the numbers."""
     t_phase = time.perf_counter()
     total = {k: 0 for k in KERNELS}
@@ -2547,11 +2458,9 @@ def weights_bench_path(card):
     with tempfile.TemporaryDirectory() as root:
         counts, numbers["tutorial_ms"] = tutorial_path(card, root)
     total = {k: total[k] + counts[k] for k in KERNELS}
-    for key, fn in (("bench", bench_path), ("stage_split", stage_split_path),
-                    ("overfit", overfit_path)):
-        torch.cuda.empty_cache()
-        counts, numbers[key] = fn(card)
-        total = {k: total[k] + counts[k] for k in KERNELS}
+    torch.cuda.empty_cache()
+    counts, numbers["overfit"] = overfit_path(card)
+    total = {k: total[k] + counts[k] for k in KERNELS}
     numbers["seconds"] = time.perf_counter() - t_phase
     print(f"[12] main path 8: kernel launches {total}; {numbers['seconds']:.1f} s")
     return total, numbers
@@ -2880,8 +2789,6 @@ def main():
           f"ms/batch, train form {fwd_ms[False]:.3f} ms/batch "
           f"(deploy, train, deploy), the exported deploy program {export_ms:.3f} "
           f"ms/batch; on {card}")
-    with torch.no_grad():
-        device_time_split(lambda: eager[False](xb, wh), fwd_ms[False])
     lat = []
     for i in range(23):
         t0 = time.perf_counter()
@@ -3086,9 +2993,9 @@ def main():
     total = {k: total[k] + counts_variants7[k] for k in KERNELS}
 
     # ---- 12. main path 8: weights from elsewhere, the tutorial, the
-    # headline bench, the stage split, the overfit run
+    # overfit run
     torch.cuda.empty_cache()
-    counts_path8, path8_numbers = weights_bench_path(card)
+    counts_path8, path8_numbers = weights_programs_path(card)
     total = {k: total[k] + counts_path8[k] for k in KERNELS}
 
     # ---- 13. main path 9: the init and the carried optax state

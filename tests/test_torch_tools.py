@@ -6,6 +6,8 @@ tiny size and says that it timed on the host clock. An exported N program
 (batch 2, 160 px, float32) is reloaded in a fresh process and matches the
 eager serve module within 1e-5 (the same CPU kernels in the same order).
 The timing tools need a CUDA device and raise without one.
+``card_power_limit`` reads nvidia-smi's name and power limit, and gives
+None for what nvidia-smi does not tell.
 """
 import json
 import os
@@ -26,7 +28,8 @@ from detrpose_tpu.configs import model_config as jax_model_config
 from detrpose_tpu_torch.tools import benchmark, pallas_bench
 from detrpose_tpu_torch.tools.export import PROGRAM, build_serve, export_model
 from detrpose_tpu_torch.tools.phase_times import main as phase_times_main, range_times
-from detrpose_tpu_torch.utils.measure import cuda_time_ms
+from detrpose_tpu_torch.utils import measure
+from detrpose_tpu_torch.utils.measure import card_power_limit, cuda_time_ms
 
 torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -101,6 +104,27 @@ def test_timing_tools_need_cuda():
         pallas_bench.bench(batch=1, res=64, iters=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         benchmark.bench_size("n", 1, res=128)
+
+
+H100_LINE = "NVIDIA H100 80GB HBM3, 700.00 W"
+NA_LINE = "NVIDIA H100 80GB HBM3, [N/A]"
+
+
+@pytest.mark.parametrize("answer, want", [
+    (H100_LINE, (H100_LINE, 700.0)),
+    (OSError("nvidia-smi: not found"), (None, None)),
+    (subprocess.TimeoutExpired("nvidia-smi", 60), (None, None)),
+    (NA_LINE, (NA_LINE, None)),
+], ids=["limit", "no-nvidia-smi", "timeout", "no-limit"])
+def test_card_power_limit(monkeypatch, answer, want):
+    def run(cmd, **kw):
+        assert cmd[0] == "nvidia-smi" and "--query-gpu=name,power.limit" in cmd
+        if isinstance(answer, BaseException):
+            raise answer
+        return subprocess.CompletedProcess(cmd, 0, stdout=answer + "\n", stderr="")
+
+    monkeypatch.setattr(measure.subprocess, "run", run)
+    assert card_power_limit() == want
 
 
 def test_range_times_reads_a_profile():

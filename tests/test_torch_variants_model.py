@@ -10,7 +10,10 @@ through ``tools/infer.py::Pipeline`` (whose call runs under
 ``torch.enable_grad()``), against JAX's in-graph resize and ``postprocess``;
 and S with the ResNet-50 backbone (N's two levels do not take the ResNet's
 three maps in JAX either). Weights are the seeded numpy draw of
-tests/test_torch_models.py with the selection head scaled by 50.
+tests/test_torch_models.py with the selection head scaled by 50. The
+default N is also held stage by stage: the backbone's maps, the encoder's
+maps (``model.backbone.apply`` and ``model.encoder.apply``), the full
+forward and the postprocessed detections.
 
 The energy training step is in tests/test_torch_variants_train.py.
 """
@@ -26,6 +29,7 @@ from detrpose_tpu.configs import model_config as jax_model_config
 from detrpose_tpu.models.postprocess import postprocess as jax_postprocess
 
 from detrpose_tpu_torch.configs import build_model, model_config
+from detrpose_tpu_torch.models import postprocess
 from detrpose_tpu_torch.tools.infer import Pipeline
 from detrpose_tpu_torch.utils.convert import from_jax_variables
 
@@ -74,6 +78,38 @@ def test_variant_model_matches_jax(name):
     for k in ("pred_logits", "pred_keypoints"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=1e-4,
                                    err_msg=k)
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4, err_msg=what)
+
+
+def test_stages_match_jax():
+    jm, v = _weights("n", {})
+    port = _port("n", {}, v).eval()
+    x = np.random.default_rng(11).uniform(0, 1, (2, HW, HW, 3)).astype(np.float32)
+    sizes = np.array([[640, 480], [333, 500]], np.float32)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+
+    feats = jm.backbone.apply({"params": v["params"]["backbone"],
+                               "batch_stats": v["batch_stats"]["backbone"]}, xj, False)
+    enc_vars = {"params": v["params"]["encoder"]}
+    if "encoder" in v.get("batch_stats", {}):
+        enc_vars["batch_stats"] = v["batch_stats"]["encoder"]
+    enc = jm.encoder.apply(enc_vars, feats, False)
+    full = jm.apply(v, xj, train=False)
+    with torch.no_grad():
+        got_feats = port.backbone(xt)
+        got = {"backbone": got_feats, "backbone+encoder": port.encoder(got_feats)}
+        got_full = port(xt)
+        decoded = postprocess(got_full, torch.from_numpy(sizes), num_body_points=17)
+    for name, want in (("backbone", feats), ("backbone+encoder", enc)):
+        assert len(got[name]) == len(want)
+        for i, (g, w) in enumerate(zip(got[name], want)):
+            _close(g.permute(0, 2, 3, 1).numpy(), w, f"{name} map {i}")
+    for k in ("pred_logits", "pred_keypoints"):
+        _close(got_full[k].numpy(), full[k], k)
+    _check_decoded(decoded, jax_postprocess(full, jnp.asarray(sizes)))
 
 
 def test_energy_refinement_through_the_pipeline():
