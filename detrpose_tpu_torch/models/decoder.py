@@ -50,6 +50,7 @@ from ..ops.grid_sample import bilinear_grid_sample_nchw
 from ..ops.misc import inverse_sigmoid
 from ..ops.ms_deform_attn import ms_deform_attn_core
 from ..ops.pos_embed import sine_embedding_2d
+from ..utils.graphs import device_constant
 from ..utils.measure import span
 from .layers import (MLP, FastKANLayer, Gate, MultiheadAttention, RMSNorm,
                      get_activation)
@@ -86,6 +87,25 @@ def msda_offset_bias(n_heads: int, n_levels: int, n_points: int,
     grid = grid / np.abs(grid).max(-1, keepdims=True)
     grid = np.tile(grid[:, None, None, None, :], (1, n_levels, n_points, num_groups, 1))
     return torch.from_numpy(grid.reshape(-1).astype(np.float32))
+
+
+@device_constant
+def _normalizer(spatial_shapes: Tuple[Tuple[int, int], ...],
+                device: torch.device) -> torch.Tensor:
+    """(1, 1, 1, nL, 1, 2) float32 (W_l, H_l) of each level; shared by
+    every caller: read only."""
+    return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                        device=device)[None, None, None, :, None, :]
+
+
+@device_constant
+def _grid_centres(gs: int, device: torch.device) -> torch.Tensor:
+    """(gs * gs, 2) float32 (x, y) centres (i + 0.5) / gs of a gs x gs grid,
+    x from the column and y from the row; shared by every caller: read
+    only."""
+    centers = (np.arange(gs, dtype=np.float32) + 0.5) / gs
+    yy, xx = np.meshgrid(centers, centers, indexing="ij")
+    return torch.from_numpy(np.stack([xx.reshape(-1), yy.reshape(-1)], -1)).to(device)
 
 
 class MSDeformAttn(nn.Module):
@@ -250,22 +270,17 @@ class MSDeformAttn(nn.Module):
                     for lvl, (h, w) in zip(value.split(sizes, dim=1), spatial_shapes)], dim=1)
 
             # loc = ref + offset / (W_l, H_l)   (ms_deform_attn.py:412-416)
-            normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                      dtype=torch.float32, device=query.device)
-            normalizer = normalizer[None, None, None, :, None, :]
+            normalizer = _normalizer(tuple((int(h), int(w)) for h, w in spatial_shapes),
+                                     query.device)
             loc = reference_points[:, :, None, None, None, :] + offsets.float() / normalizer
             out = self._msda(value, spatial_shapes, loc, aw.float())
             if not self.grid_points:
                 return out
 
-            # the coarse grid branch (ms_deform_attn.py:446-510): centres
-            # (i + 0.5) / gs, x from the column and y from the row
+            # the coarse grid branch (ms_deform_attn.py:446-510)
             Pg = self.grid_points
-            gs = math.isqrt(Pg)
-            centers = (np.arange(gs, dtype=np.float32) + 0.5) / gs
-            yy, xx = np.meshgrid(centers, centers, indexing="ij")
-            grid_loc = torch.from_numpy(np.stack([xx.reshape(-1), yy.reshape(-1)], -1)).to(
-                query.device).expand(B, Lq, nH * self.groups, nL, Pg, 2)
+            grid_loc = _grid_centres(math.isqrt(Pg), query.device).expand(
+                B, Lq, nH * self.groups, nL, Pg, 2)
             gaw = self._weights(self.grid_attention_weights(query), Pg, query.dtype)
             if hasattr(self, "grid_offsets"):
                 goff = self._heads(self.grid_offsets(query), Pg, pairs=True)

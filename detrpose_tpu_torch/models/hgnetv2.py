@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.graphs import GraphedStage
 from .layers import BatchNorm, ConvBNAct, EseModule, LightConvBNAct
 
 # name -> (stem_channels, [[in, mid, out, nblocks, downsample, light, k, nlayers]] per stage)
@@ -145,9 +146,11 @@ class HGStage(nn.Module):
         return self.blocks(x)
 
 
-class HGNetv2(nn.Module):
+class HGNetv2(GraphedStage):
     """Multi-scale CNN backbone; returns the features of the stages in
     ``return_idx`` (strides 4/8/16/32). Reference: hgnetv2.py:386-593.
+    Its eval forward on the card replays a CUDA graph
+    (``utils/graphs.py::GraphedStage``).
 
     ``remat`` recomputes each stage in the backward pass of training
     (``torch.utils.checkpoint``; JAX ``nn.remat`` of ``HGStage``): memory for
@@ -173,7 +176,7 @@ class HGNetv2(nn.Module):
                 m.eval()
         return self
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def run(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.stem(x)
         outs = []
         for i, stage in enumerate(self.stages):

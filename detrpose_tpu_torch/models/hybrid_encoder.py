@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pos_embed import sine_hw_position_embedding
+from ..utils.graphs import GraphedStage
 from ..utils.measure import span
 from .layers import (BatchNorm, ConvNormLayer, MultiheadAttention, RepNCSPELAN4,
                      SCDown, get_activation)
@@ -55,8 +56,9 @@ class _Encoder(nn.Module):
         self.layers = nn.ModuleList(layers)
 
 
-class HybridEncoder(nn.Module):
-    """Reference: hybrid_encoder.py:324-507."""
+class HybridEncoder(GraphedStage):
+    """Reference: hybrid_encoder.py:324-507. Its eval forward on the card
+    replays a CUDA graph (``utils/graphs.py::GraphedStage``)."""
 
     def __init__(self, in_channels: Sequence[int] = (512, 1024, 2048), n_levels: int = 3,
                  hidden_dim: int = 256, nhead: int = 8, dim_feedforward: int = 1024,
@@ -96,7 +98,7 @@ class HybridEncoder(nn.Module):
             RepNCSPELAN4(2 * hd, hd, 2 * hd, c4, n_blocks, act=act, deploy=deploy)
             for _ in range(n_levels - 1))
 
-    def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+    def run(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
         assert len(feats) == self.n_levels
         proj = [p(f) for p, f in zip(self.input_proj, feats)]
 

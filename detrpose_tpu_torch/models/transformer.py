@@ -11,7 +11,6 @@ from the denoising batch of ``train/cdn.py`` (moved to the device by
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,13 +18,14 @@ import torch
 import torch.nn as nn
 
 from ..ops.fdr import weighting_function
+from ..utils.graphs import device_constant
 from ..utils.measure import span
 from .decoder import CLASS_BIAS_PRIOR, LQE, TransformerDecoder
 from .layers import MLP
 
 
-@functools.lru_cache(maxsize=16)
-def _anchors_np(spatial_shapes: Tuple[Tuple[int, int], ...]):
+@device_constant
+def _anchors(spatial_shapes: Tuple[Tuple[int, int], ...], device: torch.device | str):
     all_anchors = []
     for H, W in spatial_shapes:
         gy, gx = np.meshgrid(np.arange(H, dtype=np.float32),
@@ -35,7 +35,8 @@ def _anchors_np(spatial_shapes: Tuple[Tuple[int, int], ...]):
         all_anchors.append(grid.reshape(-1, 2))
     anchors = np.concatenate(all_anchors, 0)[None]                     # (1, S, 2)
     valid = ((anchors > 0.01) & (anchors < 0.99)).all(-1, keepdims=True)
-    return np.log(anchors / (1 - anchors)), ~valid
+    return (torch.tensor(np.log(anchors / (1 - anchors)), device=device),
+            torch.tensor(~valid, device=device))
 
 
 def make_anchors(spatial_shapes: Sequence[Tuple[int, int]],
@@ -43,11 +44,10 @@ def make_anchors(spatial_shapes: Sequence[Tuple[int, int]],
     """Per-pixel anchor logits and the invalid mask (transformer.py:1179-1200).
 
     Returns anchors (1, S, 2) float32 in logit space and invalid (1, S, 1)
-    bool, True where an anchor lies outside (0.01, 0.99).
+    bool, True where an anchor lies outside (0.01, 0.99); built once per
+    shapes and device and shared by every caller: read only.
     """
-    logits, invalid = _anchors_np(tuple((int(h), int(w)) for h, w in spatial_shapes))
-    # copies: the cached arrays are never handed out
-    return torch.tensor(logits, device=device), torch.tensor(invalid, device=device)
+    return _anchors(tuple((int(h), int(w)) for h, w in spatial_shapes), device)
 
 
 class Transformer(nn.Module):

@@ -8,13 +8,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.graphs import device_constant
 
+
+@device_constant
 def weighting_function(reg_max: int, up: float, reg_scale: float,
                        device: torch.device | str = "cpu") -> torch.Tensor:
     """Non-uniform bin-value sequence W(n), length reg_max + 1, float32.
 
     W spans [-2*|up|*|reg_scale|, 2*|up|*|reg_scale|] with geometric spacing that
-    is denser near 0 (reference: transformer.py:152-195).
+    is denser near 0 (reference: transformer.py:152-195). Built once per
+    arguments and shared by every caller: read only.
     """
     up = abs(float(up))
     reg_scale = abs(float(reg_scale))
