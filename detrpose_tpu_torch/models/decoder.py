@@ -391,7 +391,8 @@ class DeformableDecoderLayer(nn.Module):
         x = self.gateway(x, ca.reshape(B, nq, T, d))
 
         if hasattr(self, "kan1"):
-            ff = self.out_linear(self.kan2(F.relu(self.kan1(x))))
+            with span("decoder.kan"):
+                ff = self.out_linear(self.kan2(F.relu(self.kan1(x))))
         else:
             ff = self.linear2(self.activation(self.linear1(x)))
         x = self.norm2(x + ff)

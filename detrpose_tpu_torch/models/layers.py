@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.dist import gather_across_ranks, world
+from ..utils.graphs import device_constant
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -363,6 +364,13 @@ class Gate(nn.Module):
         return self.norm(g1 * x1 + g2 * x2)
 
 
+@device_constant
+def _kan_centres(grid_size: int, device: torch.device) -> torch.Tensor:
+    """(G,) float32 centres 0..G-1 of FastKAN's Gaussian basis; shared by
+    every caller: read only."""
+    return torch.arange(grid_size, dtype=torch.float32, device=device)
+
+
 class FastKANLayer(nn.Module):
     """RBF approximation of KAN edge splines, the FastKAN FFN variant
     (reference: transformer.py:32-141; JAX ``models/layers.py:373-403``).
@@ -390,7 +398,7 @@ class FastKANLayer(nn.Module):
         lead, D, G = x.shape[:-1], self.in_features, self.grid_size
         xf = self.ln(x.reshape(-1, D))
         u = (torch.tanh(xf) + 1.0) * 0.5 * (G - 1)
-        centers = torch.arange(G, dtype=torch.float32, device=x.device)
+        centers = _kan_centres(G, x.device)
         basis = torch.exp(-(((u[..., None] - centers) / (self.sigma + 1e-12)) ** 2))
         s = basis.reshape(-1, D * G) @ self.coeffs.reshape(-1, D * G).to(basis.dtype).T
         return self.out_linear(s.to(x.dtype)).reshape(lead + (-1,))

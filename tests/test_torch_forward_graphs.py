@@ -19,6 +19,7 @@ import torch
 
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.models.decoder import _grid_centres, _normalizer
+from detrpose_tpu_torch.models.layers import _kan_centres
 from detrpose_tpu_torch.models.transformer import make_anchors
 from detrpose_tpu_torch.ops.fdr import weighting_function
 from detrpose_tpu_torch.ops.pos_embed import (_frequencies, _interleave_sin_cos,
@@ -84,6 +85,9 @@ L_CONSTANTS = {
     "normalizer": (lambda: _normalizer(L_SHAPES, CPU), lambda: torch.tensor(
         [[w, h] for h, w in L_SHAPES], dtype=torch.float32)[None, None, None, :, None, :]),
     "grid": (lambda: _grid_centres(4, CPU), lambda: _numpy_grid(4)),
+    # FastKAN's basis centres at kan_grid 3
+    "kan_centres": (lambda: _kan_centres(3, CPU),
+                    lambda: torch.from_numpy(np.arange(3, dtype=np.float32))),
 }
 
 
@@ -111,6 +115,7 @@ def _snapshot():
     {},
     {"use_energy_refinement": True, "grad_energy": True},
     {"use_grid_attention": True, "use_grid_offsets": True},
+    {"use_kan": True, "kan_grid": 3},
 ])
 def test_forwards_leave_the_constants_as_they_were(variant):
     """Two eval forwards in float32 give the same outputs, and neither they
