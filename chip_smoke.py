@@ -239,6 +239,7 @@ from detrpose_tpu_torch.ops.cuda import (KERNELS, ms_deform_attn_colsin, ms_defo
                                          ms_deform_attn_tpose, msda_ablate, msda_colsin,
                                          msda_forward, msda_perquery, msda_tpose)
 from detrpose_tpu_torch.ops.cuda.build import BUILD_DIR
+from detrpose_tpu_torch.ops.cuda.kan import basis_u, gaussian_basis, kan_basis, kan_basis_plain
 from detrpose_tpu_torch.ops.cuda.msda import (BACKWARD_RANGE, SMEM_OPTIN, TPOSE_BARRIER,
                                               backward_plan, gather_plan,
                                               ms_deform_attn_fast_flat, msda_backward)
@@ -278,6 +279,7 @@ from detrpose_tpu_torch.utils.native import native_error
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 peak outside the tensor cores
 
 # DETRPose-L eval: 60 queries x 18 tokens, levels at strides 8/16/32 of 640 px
@@ -327,12 +329,17 @@ PATH8_SHAPES = {"N160t16": dict(N160_SHAPES, B=16, Lq=124 * 18),
 # nP, #3 load width, #4 level count x taps from shared or device memory, #5
 # mode x load width and no_cexp's row pass
 INSTANTIATIONS = {"msda_fwd": 21, "msda_perquery": 21, "msda_colsin": 4, "msda_tpose": 8,
-                  "msda_ablate": 19, "msda_bwd": 21}
-# the libraries phase 2 builds: each kernel's, and kernel #1's backward
-# (csrc/msda_bwd.cu: dtype x load width x nP, as #1)
-LIBRARIES = {**KERNELS, "msda_bwd": msda_backward}
-# what main path 7 counts: the kernels' launches and the backward kernel's
+                  "msda_ablate": 19, "msda_bwd": 21, "kan_basis": 2}
+# the libraries phase 2 builds: each kernel's, kernel #1's backward
+# (csrc/msda_bwd.cu: dtype x load width x nP, as #1) and the FastKAN basis
+# product (csrc/kan_basis.cu: bf16 or float32 output)
+LIBRARIES = {**KERNELS, "msda_bwd": msda_backward, "kan_basis": kan_basis}
+# what main path 7 counts: the kernels' launches, the backward kernel's and
+# the FastKAN basis product's
 COUNTED = tuple(LIBRARIES)
+# the FastKAN basis product at the KAN cell's shapes (L with use_kan, bs 32:
+# 32 x 60 x 18 decoder tokens): kan1 and kan2, (N, D, G, r)
+KAN_SHAPES = {"kan1": (32 * 60 * 18, 256, 3, 129), "kan2": (32 * 60 * 18, 1024, 3, 513)}
 COLSIN_TILES = (TILE, 512)     # #3's default tile and the TPU kernel's TP
 # main path 5, the Trainer: synthetic COCO-format sets (images, 17- and
 # 14-keypoint poses) and the L recipe's batches (configs/_base.py: 16 images
@@ -443,6 +450,7 @@ def zero_launch_counts():
     for k in KERNELS.values():
         k.launches = 0
     msda_backward.launches = msda_backward.plain = 0
+    kan_basis.launches = 0
 
 
 def shifted(t, k=2):
@@ -1204,6 +1212,67 @@ def msda_backward_times(g, card):
           f"{k_ms:.4f} ms = {gather_bytes / k_ms / 1e9:.3f} TB/s; on {card}")
     return {"ms": k_ms, "device_ms": sum(k[1] for k in traced), "plain_ms": p_ms,
             "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def kan_times(g, card):
+    """Phase 8: the FastKAN basis product (csrc/kan_basis.cu) at the KAN
+    cell's kan1 and kan2 shapes, bf16. First its output against the plain
+    version's on the same inputs: the bf16 values within one bf16 ulp of
+    each plus the plain float32 product's largest distance from a float64
+    product of the same basis (both round a float32 sum of the same terms,
+    in another order), and the kernel's float32 sums at most twice as far
+    from that float64 product as cuBLAS's float32 product, in their largest
+    and their rms error (TF32 off). Then CUDA events: the kernel, its device
+    time, the plain version (the float32 basis and product, cast) and the
+    bound (one bf16 pass of the product's 2 N D G r operations at the tensor
+    cores' peak; the kernel makes three); returns the numbers."""
+    rows = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for name, (N, D, G, r) in KAN_SHAPES.items():
+        xn = torch.randn(N, D, generator=g, device="cuda").to(torch.bfloat16)
+        coeffs = (torch.randn(r, D, G, generator=g, device="cuda") / (D * G) ** 0.5).to(
+            torch.bfloat16)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        got = kan_basis(xn, coeffs, 1.0)[:, :r].float()
+        sums = kan_basis(xn, coeffs, 1.0, out_dtype=torch.float32)[:, :r].double()
+        plain32 = kan_basis_plain(xn, coeffs, 1.0)
+        basis = gaussian_basis(basis_u(xn, G), G, 1.0).reshape(N, D * G)
+        exact = basis.double() @ coeffs.reshape(r, D * G).double().T
+        del basis
+        err_c = (plain32.double() - exact).abs()
+        err_k = (sums - exact).abs()
+        rms = lambda e: e.pow(2).mean().sqrt().item()
+        ratio = (err_k.max().item() / err_c.max().item(), rms(err_k) / rms(err_c))
+        plain = plain32.to(torch.bfloat16).float()
+        ulp = torch.pow(2.0, torch.floor(torch.log2(torch.maximum(got.abs(), plain.abs())
+                                                    .clamp_min(2.0 ** -126))) - 7)
+        diff = (got - plain).abs()
+        max_abs_err = diff.max().item()
+        over = (diff > ulp + err_c.max().item()).sum().item()
+        del sums, plain32, exact, err_c, err_k, plain, ulp, diff, got
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        print(f"[8] kan_basis vs its plain version at the KAN cell's {name} shapes: max|diff| "
+              f"{max_abs_err:.3e}, {over} values past one bf16 ulp + the float32 product's "
+              f"error; its float32 sums' error against a float64 product {ratio[0]:.3f}x "
+              f"(largest) and {ratio[1]:.3f}x (rms) cuBLAS FP32's (limit 2x)")
+        if over or max(ratio) > 2:
+            fail(f"kan_basis at {name}: {over} values off the plain version, float32 error "
+                 f"{ratio[0]:.3f}x / {ratio[1]:.3f}x cuBLAS's")
+        kernel = lambda: kan_basis(xn, coeffs, 1.0)
+        k_ms = cuda_time_ms(kernel, iters=20)
+        dev = sum(k[1] for k in kernel_times(kernel, n=10))
+        p_ms = cuda_time_ms(lambda: kan_basis_plain(xn, coeffs, 1.0).to(torch.bfloat16), iters=5)
+        bound = 2 * N * D * G * r / BF16_FLOP_PER_S * 1e3
+        print(f"[8] kan_basis at the KAN cell's {name} shapes (N {N}, D {D}, G {G}, r {r}, "
+              f"bf16): kernel {k_ms:.4f} ms (its device time {dev:.4f} ms), plain "
+              f"{p_ms:.4f} ms, bound {bound:.4f} ms (one bf16 pass at 989 TFLOP/s; "
+              f"{3 * bound:.4f} ms for the three it makes), {100 * bound / k_ms:.2f}% of it; "
+              f"on {card}")
+        rows[name] = {"ms": k_ms, "device_ms": dev, "plain_ms": p_ms, "bound_ms": bound,
+                      "bound_by": "operations", "max_abs_err": max_abs_err,
+                      "f32_err_vs_cublas": ratio}
+        del xn, coeffs
+    return rows
 
 
 def msda_backward_alone(g):
@@ -2060,7 +2129,7 @@ def variant_launches(flags, backend, train=False):
     if flags.get("use_energy_refinement"):
         energy = flags["energy_steps"] * (2 if flags.get("grad_energy") else 1)
         grads = flags["energy_steps"] if flags.get("grad_energy") and not train else 0
-    want = {k: 0 for k in KERNELS}
+    want = {k: 0 for k in COUNTED}
     want["msda_bwd"] = 0 if backend == "gather" else grads
     if backend == "auto":
         want["msda_fwd"] = main + energy
@@ -2070,9 +2139,11 @@ def variant_launches(flags, backend, train=False):
 
 
 def variant_counts():
-    """The kernels' launches and kernel #1's backward's since
-    ``zero_launch_counts``, as ``variant_launches`` gives them."""
-    return {**launch_counts(), "msda_bwd": msda_backward.launches}
+    """The kernels' launches, kernel #1's backward's and the FastKAN basis
+    product's since ``zero_launch_counts``, as ``variant_launches`` gives
+    them."""
+    return {**launch_counts(), "msda_bwd": msda_backward.launches,
+            "kan_basis": kan_basis.launches}
 
 
 def energy_attn(model):
@@ -2143,6 +2214,21 @@ def serve_ms(model, x, ts):
     """Forward + postprocess at bs 32, bf16 (bench_size's protocol)."""
     with torch.no_grad():
         return cuda_time_ms(lambda: postprocess(model(x), ts), iters=10)
+
+
+def kan_serve_launches(name, flags, model, x):
+    """One bf16 forward of a variant without a gradient: the FastKAN basis
+    product's launches, 2 a decoder layer with ``use_kan`` (its kan1 and
+    kan2) and none without; returns the count."""
+    want = 2 * model_config("l", **flags).num_decoder_layers if flags.get("use_kan") else 0
+    zero_launch_counts()
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    if kan_basis.launches != want:
+        fail(f"{name} L bf16 forward launched kan_basis {kan_basis.launches} times, expected "
+             f"{want}")
+    return kan_basis.launches
 
 
 def check_train_variant(name, flags, batch):
@@ -2293,6 +2379,7 @@ def variants_path(card, gen, g):
         model, launched = check_variant(name, flags, x)
         total = {k: total[k] + launched[k] for k in COUNTED}
         model.to(torch.bfloat16)
+        total["kan_basis"] += kan_serve_launches(name, flags, model, xb)
         serve[name] = serve_ms(model, xb, ts)
         del model
         torch.cuda.empty_cache()
@@ -2956,6 +3043,7 @@ def main():
           f"forward {bwd_alone[0]:.4f} ms, its plain-version backward {bwd_alone[1]:.4f} ms a "
           f"call (x6 = {6 * bwd_alone[1]:.3f} ms a micro-step); on {card}")
     bwd_kernel = msda_backward_times(g, card)
+    kan = kan_times(g, card)
     logits, kpts, _ = branch_assignments(tstep.model, tbatch)
     matcher_ms = {b: cuda_time_ms(lambda b=b: hungarian_match(logits, kpts, tbatch["targets"], 17,
                                                               backend=b), iters=5)
@@ -3003,8 +3091,10 @@ def main():
     counts_path9, path9_numbers = training_start_path(card)
     total = {k: total[k] + counts_path9[k] for k in KERNELS}
     # kernel #1's backward kernel runs only in a forward with energy
-    # refinement's gradient: main path 7's, which counts it
+    # refinement's gradient, the FastKAN basis product only in the KAN
+    # variant's bf16 forward: main path 7's, which counts them
     total["msda_bwd"] = counts_variants7["msda_bwd"]
+    total["kan_basis"] = counts_variants7["kan_basis"]
 
     # ---- 14. report
     sources = {"msda_fwd": ("detrpose_tpu_torch/csrc/msda_fwd.cu",
@@ -3052,7 +3142,12 @@ def main():
         "replaces": None, "launches": total["msda_bwd"],
         "max_abs_err": max_abs_err["msda_bwd"], "ms": bwd_kernel["ms"],
         "plain_ms": bwd_kernel["plain_ms"], "bound_ms": bwd_kernel["bound_ms"],
-        "bound_by": bwd_kernel["bound_by"], "library_ms": None}]}))
+        "bound_by": bwd_kernel["bound_by"], "library_ms": None}] + [{
+        "name": f"kan_basis {name}", "route": "cuda", "source": "detrpose_tpu_torch/csrc/kan_basis.cu",
+        "replaces": None, "launches": total["kan_basis"], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None} for name, row in kan.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

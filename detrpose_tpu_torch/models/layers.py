@@ -14,7 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.dist import gather_across_ranks, world
-from ..utils.graphs import device_constant
+from ..ops.cuda.kan import kan_basis_plain, kan_fused, kan_path
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -364,13 +364,6 @@ class Gate(nn.Module):
         return self.norm(g1 * x1 + g2 * x2)
 
 
-@device_constant
-def _kan_centres(grid_size: int, device: torch.device) -> torch.Tensor:
-    """(G,) float32 centres 0..G-1 of FastKAN's Gaussian basis; shared by
-    every caller: read only."""
-    return torch.arange(grid_size, dtype=torch.float32, device=device)
-
-
 class FastKANLayer(nn.Module):
     """RBF approximation of KAN edge splines, the FastKAN FFN variant
     (reference: transformer.py:32-141; JAX ``models/layers.py:373-403``).
@@ -379,8 +372,10 @@ class FastKANLayer(nn.Module):
     Gaussian basis over the G centres 0..G-1 -> the sum over (input, centre)
     with ``coeffs`` (in//2 + 1, in, G) -> ``out_linear``. The sum is JAX's
     einsum ``bdg,rdg->br``, here one matrix product of (N, in*G) by
-    (in*G, in//2 + 1). ``coeffs`` is drawn from normal(``init_scale``) by
-    ``models/detrpose.py::init_parameters``.
+    (in*G, in//2 + 1): ``ops/cuda/kan.py::kan_basis_plain`` in float32, or
+    on the card, where ``kan_path`` allows, the kernel ``csrc/kan_basis.cu``
+    inside the profiler range ``kan.fused``. ``coeffs`` is drawn from
+    normal(``init_scale``) by ``models/detrpose.py::init_parameters``.
     """
 
     def __init__(self, in_features: int, out_features: int, grid_size: int = 21,
@@ -395,13 +390,14 @@ class FastKANLayer(nn.Module):
         self.out_linear = nn.Linear(rank, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lead, D, G = x.shape[:-1], self.in_features, self.grid_size
+        lead, D = x.shape[:-1], self.in_features
         xf = self.ln(x.reshape(-1, D))
-        u = (torch.tanh(xf) + 1.0) * 0.5 * (G - 1)
-        centers = _kan_centres(G, x.device)
-        basis = torch.exp(-(((u[..., None] - centers) / (self.sigma + 1e-12)) ** 2))
-        s = basis.reshape(-1, D * G) @ self.coeffs.reshape(-1, D * G).to(basis.dtype).T
-        return self.out_linear(s.to(x.dtype)).reshape(lead + (-1,))
+        if kan_path(xf.device.type, (xf.dtype, self.coeffs.dtype), torch.is_grad_enabled(),
+                    (xf.requires_grad, *(p.requires_grad for p in self.parameters())),
+                    self.grid_size) == "kernel":
+            return kan_fused(xf, self.coeffs, self.sigma, self.out_linear).reshape(lead + (-1,))
+        s = kan_basis_plain(xf, self.coeffs, self.sigma).to(x.dtype)
+        return self.out_linear(s).reshape(lead + (-1,))
 
 
 class RMSNorm(nn.Module):

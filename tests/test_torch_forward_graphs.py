@@ -19,7 +19,7 @@ import torch
 
 from detrpose_tpu_torch.configs import build_model, model_config
 from detrpose_tpu_torch.models.decoder import _grid_centres, _normalizer
-from detrpose_tpu_torch.models.layers import _kan_centres
+from detrpose_tpu_torch.ops.cuda.kan import _kan_centres
 from detrpose_tpu_torch.models.transformer import make_anchors
 from detrpose_tpu_torch.ops.fdr import weighting_function
 from detrpose_tpu_torch.ops.pos_embed import (_frequencies, _interleave_sin_cos,
